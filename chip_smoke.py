@@ -1,0 +1,586 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of CE-FL (``src/repro_torch``) on one NVIDIA
+card and check it.
+
+    python3 chip_smoke.py            # from the repo root, on a machine with
+                                     # one CUDA card, nvcc and nvidia-smi
+
+Phases (any failure exits non-zero; nothing is caught and swallowed):
+
+1. build   — compile every kernel of ``src/repro_torch/kernels/csrc`` for
+             sm_90a, one nvcc per source, all started together.
+2. path    — the main path at the paper's width: the 20-UE / 10-BS / 5-DC
+             network, the 28x28x1 -> 200 -> 100 -> 10 classifier (random
+             weights from a seed), a 48,000-image pool with N(2000, 200)
+             arrivals per UE per round and 1,000 eval examples; 3 rounds
+             of ``greedy_data`` and 2 rounds of ``fednova`` through the
+             engine on ``device="cuda"``.  The launch counters are set to
+             0 just before and read just after; every kernel of the path
+             must have launched exactly as often as the rounds' DPU groups
+             say, and the groups give the shapes of those launches.
+             Losses must be finite, final accuracy above chance.
+3. kernels — each hand-written kernel against its plain PyTorch version on
+             the same card tensors, at every shape the path launched it
+             with and at extra cases, with the tolerance stated below;
+             then each is timed with CUDA events (median of 30 launches,
+             L2 flushed before each) beside its plain version, its bound
+             and a one-call PyTorch yardstick where one exists.  The
+             kernels line reports the largest group the path launched.
+4. check   — one fused round at paper width on the card against the same
+             staged round on the CPU (plain versions), to the stated
+             tolerance.
+
+Its last lines: the card's ``name, power.limit`` as nvidia-smi prints
+them, one JSON line with every kernel's numbers, and the result line
+``{"ok": true, "device": {...}}``.  Longer output (the per-shape table,
+the profile of one round) goes to ``chiprun_out/chip_smoke/``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from collections import Counter
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out" / "chip_smoke"
+
+# The H100 SXM's published peaks (NVIDIA data sheet): memory rate in B/s
+# and float32 rate outside the tensor cores in FLOP/s, keyed on the name
+# torch reports.  Other cards raise until a run on them adds their entry.
+CARDS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
+
+REPLACES = {
+    "fedprox_accum": ("src/repro_torch/kernels/csrc/fedprox_accum.cu",
+                      "src/repro/kernels/fedprox_update.py:135"),
+    "nova_aggregate": ("src/repro_torch/kernels/csrc/nova_aggregate.cu",
+                       "src/repro/kernels/nova_aggregate.py:85"),
+}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_rates(name: str):
+    if name not in CARDS:
+        raise RuntimeError(f"no published rates for card {name!r}")
+    return CARDS[name]
+
+
+def smi_name_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------- timing -----
+
+class Timer:
+    """Median device time of one call, by CUDA events around it.  Before
+    each call the 50 MB L2 is flushed (a 256 MiB write) and the stream is
+    held by a short device-side sleep, so the call is queued before the
+    start event runs and the interval holds device work only."""
+
+    def __init__(self, dev):
+        self.flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+
+    def __call__(self, fn, iters=30, warmup=3) -> float:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            torch.cuda._sleep(1_000_000)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+# -------------------------------------------------------- tolerance -----
+
+def _spacing(t: torch.Tensor) -> float:
+    return float(np.spacing(np.float32(float(t.float().abs().max()))))
+
+
+def _bf16_ulp(a: torch.Tensor) -> torch.Tensor:
+    _, e = torch.frexp(a.abs())
+    return torch.ldexp(torch.ones_like(a), e - 8)
+
+
+def within(got, want, atol) -> dict:
+    """Max abs error, the bound applied and whether it held.  f32:
+    |got - want| <= atol.  bf16: <= one bf16 ulp of the result or atol,
+    whichever is larger, per element; ``tol`` is then the largest
+    per-element bound and ``worst`` the largest error / bound."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        bound = torch.clamp(_bf16_ulp(torch.maximum(g.abs(), w.abs())),
+                            min=atol)
+        rule = "1 bf16 ulp of the result"
+    else:
+        bound = torch.full_like(err, atol)
+        rule = "abs"
+    return {"max_abs_err": float(err.max()), "tol": float(bound.max()),
+            "tol_rule": rule, "worst": float((err / bound).max()),
+            "ok": bool(torch.all(err <= bound))}
+
+
+def _both(a, b) -> dict:
+    """The check of two outputs as one."""
+    return {"max_abs_err": max(a["max_abs_err"], b["max_abs_err"]),
+            "tol": max(a["tol"], b["tol"]), "tol_rule": a["tol_rule"],
+            "worst": max(a["worst"], b["worst"]), "ok": a["ok"] and b["ok"]}
+
+
+# ---------------------------------------------------- phase 3: kernels --
+
+def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
+    """Every kernel against its plain version: at each shape the main path
+    launched it with (``path_shapes``: kernel -> {(G or n, R): launches};
+    f32, shared anchor, as the path runs) and at the extra cases below.
+    Every R = 176 case is timed.  Returns the per-case rows and, per
+    kernel, the row of the largest group the path launched."""
+    from repro_torch.kernels import fedprox_update as kfp
+    from repro_torch.kernels import nova_aggregate as kna
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plane import LANE
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    rows, main = [], {}
+    f32 = torch.float32
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # fedprox_accum: the path's (G, R), then G in {5, 20, 25} at R = 176
+    # (the paper classifier's plane), both anchor forms, f32 and bf16,
+    # plus the edge rows 24, 40.  Tolerance: two f32 ulps of the largest
+    # operand, because nvcc contracts the kernel's multiply-adds into FMAs
+    # where the plain version rounds each op (one bf16 ulp of the result
+    # for bf16).
+    path = path_shapes["fedprox_accum"]
+    cases = [(G, R, f32, "shared", n) for (G, R), n in sorted(path.items())]
+    cases += [(G, 176, dt, anc, 0) for G in (5, 20, 25)
+              for dt in (f32, torch.bfloat16)
+              for anc in ("shared", "per_dpu")]
+    cases += [(5, R, dt, anc, 0) for R in (24, 40)
+              for dt in (f32, torch.bfloat16)
+              for anc in ("shared", "per_dpu")]
+    G_main = max(G for G, _ in path)
+    for G, R, dt, anc, on_path in cases:
+        x, g, acc = (randn((G, R, LANE), dt) for _ in range(3))
+        anchor = randn((R, LANE) if anc == "shared" else (G, R, LANE), dt)
+        coef = torch.rand(G, generator=gen, device=dev) + 0.5
+        active = (torch.rand(G, generator=gen, device=dev) > 0.2).float()
+        eta, mu = 0.1, 0.01
+        kx, kacc = kfp.fedprox_accum(x, g, anchor, acc, coef, active, eta,
+                                     mu)
+        rx, racc = ref.fedprox_accum_ref(x, g, anchor, acc, coef, active,
+                                         eta, mu)
+        torch.cuda.synchronize()
+        atol = 2 * max(_spacing(x), _spacing(g), _spacing(anchor),
+                       _spacing(acc))
+        esize = x.element_size()
+        planes = 6 * G if anc == "per_dpu" else 5 * G + 1
+        nbytes = esize * R * LANE * planes
+        flops = 7 * G * R * LANE
+        row = {"kernel": "fedprox_accum", "G": G, "R": R,
+               "dtype": str(dt).replace("torch.", ""), "anchor": anc,
+               "path_launches": on_path, "bytes": nbytes,
+               **_both(within(kx, rx, atol), within(kacc, racc, atol))}
+        if R == 176:
+            args = (x, g, anchor, acc, coef, active, eta, mu)
+            row["ms"] = timer(lambda: kfp.fedprox_accum(*args))
+            row["plain_ms"] = timer(lambda: ref.fedprox_accum_ref(*args))
+            row["library_ms"] = None
+            row["bound_ms"] = max(nbytes / bw, flops / f32_rate) * 1e3
+            row["bound_by"] = "bytes" if nbytes / bw >= flops / f32_rate \
+                else "operations"
+        if on_path and G == G_main:
+            main["fedprox_accum"] = row
+        rows.append(row)
+        log(f"  {_fmt(row)}")
+
+    # nova_aggregate: the path's (n, R), then n in {5, 25} DPUs at R = 176,
+    # f32 and bf16, plus the edge rows.  Tolerance: two f32 ulps of the
+    # largest x plus theta*eta * n ulps of the largest d (the kernel sums
+    # the n terms in order with FMAs, the plain einsum in cuBLAS's order).
+    path = path_shapes["nova_aggregate"]
+    cases = [(n, R, f32, c) for (n, R), c in sorted(path.items())]
+    cases += [(n, 176, dt, 0) for n in (5, 25)
+              for dt in (f32, torch.bfloat16)]
+    cases += [(5, R, dt, 0) for R in (24, 40)
+              for dt in (f32, torch.bfloat16)]
+    n_main = max(n for n, _ in path)
+    for n, R, dt, on_path in cases:
+        x = randn((R, LANE), dt)
+        d = randn((n, R, LANE), dt)
+        w = torch.rand(n, generator=gen, device=dev) + 0.1
+        w = w / w.sum()
+        theta_eta = 0.2
+        k = kna.nova_aggregate(x, d, w, theta_eta)
+        r = ref.nova_aggregate_ref(x, d, w, theta_eta)
+        torch.cuda.synchronize()
+        atol = 2 * _spacing(x) + theta_eta * n * _spacing(d)
+        esize = x.element_size()
+        nbytes = esize * R * LANE * (n + 2)
+        flops = 2 * (n + 1) * R * LANE
+        row = {"kernel": "nova_aggregate", "G": n, "R": R,
+               "dtype": str(dt).replace("torch.", ""), "anchor": "-",
+               "path_launches": on_path, "bytes": nbytes,
+               **within(k, r, atol)}
+        if R == 176:
+            row["ms"] = timer(lambda: kna.nova_aggregate(x, d, w,
+                                                         theta_eta))
+            row["plain_ms"] = timer(lambda: ref.nova_aggregate_ref(
+                x, d, w, theta_eta))
+            # the one-call yardstick: x - theta_eta * (w @ d) as addmm
+            row["library_ms"] = timer(lambda: torch.addmm(
+                x.view(1, -1), w.to(dt).view(1, n), d.view(n, -1),
+                alpha=-theta_eta))
+            row["bound_ms"] = max(nbytes / bw, flops / f32_rate) * 1e3
+            row["bound_by"] = "bytes" if nbytes / bw >= flops / f32_rate \
+                else "operations"
+        if on_path and n == n_main:
+            main["nova_aggregate"] = row
+        rows.append(row)
+        log(f"  {_fmt(row)}")
+    return rows, main
+
+
+def _fmt(row):
+    tol = (f"tol {row['tol']:.3e}" if row["tol_rule"] == "abs" else
+           f"tol {row['tol_rule']}, <= {row['tol']:.3e}")
+    where = (f"path x{row['path_launches']}" if row["path_launches"]
+             else "extra")
+    s = (f"{row['kernel']:<15} G/n={row['G']:<3} R={row['R']:<4} "
+         f"{row['dtype']:<9} {row['anchor']:<8} {where:<9} "
+         f"err={row['max_abs_err']:.3e} ({tol}; worst err/tol "
+         f"{row['worst']:.2f}) {'ok' if row['ok'] else 'MISMATCH'}")
+    if "ms" in row:
+        lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+        s += (f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms"
+              f"  library {lib} ms  bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+    return s
+
+
+# ------------------------------------------------------- phase 2: path --
+
+def paper_world(dev):
+    """The paper-width world (App. G / Table III sizes), from seeds."""
+    from repro_torch.configs.cefl_paper import ClassifierConfig
+    from repro_torch.core.convergence import MLConstants
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.models.classifier import init_classifier_params
+    from repro_torch.network.topology import NetworkConfig, make_network
+
+    net = make_network(NetworkConfig(num_ue=20, num_bs=10, num_dc=5,
+                                     seed=0))
+    pool = make_image_dataset(48000, (28, 28, 1), seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p0 = init_classifier_params(gen, ClassifierConfig(), device=dev)
+    consts = MLConstants(L=5.0, theta_i=np.full(25, 2.0),
+                         sigma_i=np.full(25, 3.0))
+    return net, pool, p0, consts
+
+
+def drive_path(dev, world):
+    """3 rounds of greedy_data and 2 of fednova on the card, counting
+    launches.  Returns the launch counts, the shapes each kernel was
+    launched at (kernel -> {(G or n, R): launches}, from the rounds' DPU
+    groups), the per-round records and the engines."""
+    from repro_torch.core.api import EngineOptions
+    from repro_torch.core.engine import Engine, dpu_groups, live_dpus
+    from repro_torch.data.synthetic import make_online_ues
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.plane import as_plane
+    from repro_torch.models.classifier import (classifier_accuracy,
+                                               classifier_loss)
+    from repro_torch.solver.objective import ObjectiveWeights
+
+    net, ((trx, try_), (tex, tey)), p0, consts = world
+    R = as_plane(p0).data.shape[0]
+    ex = torch.from_numpy(tex[:1000]).to(dev)
+    ey = torch.from_numpy(tey[:1000]).to(dev)
+
+    def eval_fn(p):
+        return classifier_accuracy(p, ex, ey)
+
+    runs = [("greedy_data", 3), ("fednova", 2)]
+    engines = []
+    for strategy, rounds in runs:
+        ues = make_online_ues(trx, try_, num_ue=20, mean_arrivals=2000.0,
+                              std_arrivals=200.0, seed=0)
+        eng = Engine(net, strategy, consts=consts,
+                     ow=ObjectiveWeights(xi1=1.0, xi2=1e-2, xi3=2.0,
+                                         T=rounds),
+                     opts=EngineOptions(rounds=rounds, eta=0.1, seed=0),
+                     device=dev)
+        state = eng.init_loop(ues, init_params=p0, loss_fn=classifier_loss,
+                              eval_fn=eval_fn)
+        engines.append((strategy, eng, state, ues))
+    torch.cuda.synchronize()
+
+    shapes = {"fedprox_accum": Counter(), "nova_aggregate": Counter()}
+    records = []
+    ops.reset_launches()                       # counts to 0: the path
+    for strategy, eng, state, ues in engines:
+        while state.t < eng.opts.rounds:
+            t0 = time.perf_counter()
+            staged = eng.begin_round(state, ues)
+            t1 = time.perf_counter()
+            live = live_dpus(staged.datasets)
+            groups = dpu_groups(staged.plan, live)
+            for (gamma, _m, _bucket), idxs in groups.items():
+                shapes["fedprox_accum"][(len(idxs), R)] += gamma
+            if eng.aggregation != "fedavg":
+                shapes["nova_aggregate"][(len(live), R)] += 1
+            mean_loss, acc = eng.execute_round(state, staged)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rep = eng.finish_round(state, staged, mean_loss, acc)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            rec = {"strategy": strategy, "round": rep.round,
+                   "wall_s": t3 - t0, "host_plan_s": t1 - t0,
+                   "device_round_s": t2 - t1, "account_s": t3 - t2,
+                   "loss": rep.loss, "acc": rep.acc,
+                   "aggregator": rep.aggregator, "energy_J": rep.energy,
+                   "delay_s": rep.delay, "dc_points": rep.dc_points,
+                   "examples": int(sum(len(d["y"]) for d in staged.datasets
+                                       if d is not None)),
+                   "groups": [len(v) for v in groups.values()],
+                   "fused": len(groups) == 1}
+            records.append(rec)
+            log(f"  {strategy:<11} round {rep.round}: wall "
+                f"{rec['wall_s']:.3f} s (plan {rec['host_plan_s']:.3f}, "
+                f"device round {rec['device_round_s']:.3f}, account "
+                f"{rec['account_s']:.3f})  loss {rep.loss:.4f}  acc "
+                f"{rep.acc:.3f}  aggregator DC{rep.aggregator}  energy "
+                f"{rep.energy:.2f} J  delay {rep.delay:.3f} s  groups "
+                f"{rec['groups']}  examples {rec['examples']}")
+    launches = dict(ops.LAUNCHES)              # read just after
+    expected = {k: sum(c.values()) for k, c in shapes.items()}
+    log(f"  launches {launches}  expected {expected}")
+    for name, c in shapes.items():
+        log(f"  {name} launch shapes (G or n, R): launches: {dict(c)}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != {expected}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} never launched on the path")
+    if not all(np.isfinite(r["loss"]) for r in records):
+        raise AssertionError("a round's loss is not finite")
+    for strategy, _, state, _ in engines:
+        acc = state.reports[-1].acc
+        if not acc > 0.1:
+            raise AssertionError(f"{strategy}: final accuracy {acc} is not "
+                                 "above chance (0.1)")
+    return launches, shapes, records, engines
+
+
+def staging_and_profile(dev, engines):
+    """Host->device staging of the last greedy_data round's data, timed
+    alone, and a profile of one more fednova round (after the counted
+    path).  Returns a summary dict."""
+    from repro_torch.core import fedprox
+    from repro_torch.core.engine import dpu_groups, live_dpus
+
+    strategy, eng, state, ues = engines[0]
+    staged = eng.begin_round(state, ues)
+    live = live_dpus(staged.datasets)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    nbytes = sum(d["x"].nbytes + d["y"].nbytes for _, d in live)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for (gamma, m, bucket), idxs in dpu_groups(staged.plan, live).items():
+        data = [live[j][1] for j in idxs]
+        Ds = [len(d["y"]) for d in data]
+        fedprox._stage_group_batches(data, gen, Ds, bucket, gamma, m, dev)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    log(f"  staging one greedy_data round: {nbytes / 1e6:.1f} MB host "
+        f"data in {stage_s * 1e3:.1f} ms")
+
+    strategy, eng, state, ues = engines[1]
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        staged = eng.begin_round(state, ues)
+        mean_loss, acc = eng.execute_round(state, staged)
+        eng.finish_round(state, staged, mean_loss, acc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    busy_us = sum(device_us(e) for e in events)
+    top = sorted(events, key=lambda e: -device_us(e))[:12]
+    table = [{"name": e.key, "calls": e.count,
+              "device_ms": device_us(e) / 1e3} for e in top]
+    log(f"  profiled fednova round: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms ({100 * busy_us / 1e3 / (wall * 1e3):.2f}"
+        f" % of wall)")
+    for r in table[:6]:
+        log(f"    {r['device_ms']:9.3f} ms  {r['calls']:4d}x  {r['name'][:70]}")
+    return {"staging_bytes": nbytes, "staging_s": stage_s,
+            "profiled_round_wall_s": wall,
+            "profiled_round_device_ms": busy_us / 1e3, "top": table}
+
+
+# ----------------------------------------------------- phase 4: check --
+
+def reference_check(dev, world):
+    """One fused round at paper width, staged once on the CPU: the card
+    (kernels) against the CPU (plain versions).  Tolerance: rtol 1e-4,
+    atol 1e-5 on the new plane and rtol 1e-4 on the losses — the f32
+    products run in cuBLAS's and the CPU BLAS's summation orders over
+    two SGD steps, and nvcc contracts the kernels' multiply-adds."""
+    from repro_torch.core import fedprox
+    from repro_torch.kernels.plane import as_plane
+    from repro_torch.models.classifier import (classifier_accuracy,
+                                               classifier_loss)
+
+    net, ((trx, try_), (tex, tey)), p0, _ = world
+    plane = as_plane({k: v.cpu() for k, v in p0.items()})
+    rng = np.random.RandomState(3)
+    datasets = []
+    for D in (600, 700, 800, 900, 1000):      # one mini-batch bucket
+        idx = rng.choice(len(try_), D, replace=False)
+        datasets.append({"x": trx[idx], "y": try_[idx]})
+    gamma, m, eta, mu, theta = 2, 0.5, 0.1, 0.01, 2.0
+    Ds, bucket = fedprox._group_layout(datasets, m)
+    staged = fedprox._stage_group_batches(
+        datasets, torch.Generator().manual_seed(0), Ds, bucket, gamma, m,
+        torch.device("cpu"))
+    ex, ey = torch.from_numpy(tex[:1000]), torch.from_numpy(tey[:1000])
+    outs = {}
+    for where in ("cpu", dev):
+        p = plane.data.to(where)
+        args = (plane.broadcast(5).data.contiguous().to(where), p,
+                {k: v.to(where) for k, v in staged[0].items()},
+                staged[1].to(where), staged[2].to(where),
+                fedprox.a_coefficients(gamma, eta, mu), eta, mu,
+                torch.tensor(Ds, dtype=torch.float32), theta * eta)
+        exw, eyw = ex.to(where), ey.to(where)
+        run = fedprox._plane_round_fn(
+            classifier_loss, plane.spec,
+            lambda q: classifier_accuracy(q, exw, eyw))
+        new, losses, acc = run(*args)
+        outs[str(where)] = (new.cpu(), losses.cpu(), float(acc))
+    (cn, cl, ca), (gn, gl, ga) = outs["cpu"], outs[str(dev)]
+    err = float((gn - cn).abs().max())
+    torch.testing.assert_close(gn, cn, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(gl, cl, rtol=1e-4, atol=0.0)
+    log(f"  fused round card vs CPU: plane max abs err {err:.3e}, losses "
+        f"max rel err {float(((gl - cl) / cl).abs().max()):.3e}, acc "
+        f"{ga:.3f} vs {ca:.3f}")
+    if abs(ga - ca) * 1000 > 2:
+        raise AssertionError(f"eval accuracy {ga} (card) vs {ca} (CPU)")
+    return err
+
+
+# ---------------------------------------------------------------- main --
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import cuda
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = smi_name_power()
+    bw, f32_rate = card_rates(kind)
+    log(f"card: {kind} ({smi}); torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}; peaks used for bounds: {bw / 1e12:.2f} TB/s,"
+        f" {f32_rate / 1e12:.0f} TFLOP/s f32")
+
+    log("phase 1: build")
+    t0 = time.perf_counter()
+    built = cuda.build()
+    log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    for name, (secs, out) in sorted(built.items()):
+        info = [ln.strip() for ln in out.splitlines()
+                if "registers" in ln or "spill" in ln]
+        log(f"  {name}: {secs:.1f} s; " + " | ".join(info))
+
+    log("phase 2: the main path at paper width (greedy_data x3, fednova x2)")
+    world = paper_world(dev)
+    torch.cuda.reset_peak_memory_stats()
+    launches, shapes, records, engines = drive_path(dev, world)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory {peak / 2**20:.1f} MiB")
+    extra = staging_and_profile(dev, engines)
+
+    log(f"phase 3: kernels vs plain versions at the path's shapes and extra "
+        f"cases ({smi})")
+    timer = Timer(dev)
+    rows, main_rows = kernel_checks(dev, timer, bw, f32_rate, shapes)
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} kernel case(s) disagree with the "
+                             f"plain version: {bad}")
+    del timer
+
+    log("phase 4: one fused round, card vs CPU")
+    round_err = reference_check(dev, world)
+
+    kernels = []
+    for name in ("fedprox_accum", "nova_aggregate"):
+        r = main_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": REPLACES[name][0],
+            "replaces": REPLACES[name][1], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "result.json").write_text(json.dumps({
+        "card": smi, "kind": kind, "torch": torch.__version__,
+        "cuda": torch.version.cuda, "kernel_rows": rows,
+        "rounds": records, "peak_device_bytes": peak,
+        "path_launch_shapes": {k: [[G, R, n] for (G, R), n in c.items()]
+                               for k, c in shapes.items()},
+        "round_check_max_abs_err": round_err, "staging_profile": extra,
+        "seconds": time.perf_counter() - t_start}, indent=1, default=str))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

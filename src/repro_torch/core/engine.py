@@ -1,0 +1,425 @@
+"""The CE-FL orchestration engine.  Counterpart of ``repro.core.engine``
+(the simulation executor and the round loop).
+
+Each global round t (paper Secs. II+IV-VI):
+  1. the :class:`~repro_torch.scenario.base.Scenario` evolves the world
+     (per-round rates, newly observed per-UE data),
+  2. the :class:`~repro_torch.core.api.DecisionStrategy` picks the plan
+     w^t (offloading rho, compute settings f/z/gamma/m, floating
+     aggregator I_s),
+  3. data offloading is realized (UE -> BS -> DC partitions),
+  4. every DPU runs FedProx local training (eqs. 5-10) through
+     :class:`SimExecutor`,
+  5. accumulated gradients are aggregated at the floating aggregation DC
+     (eq. 11), or FedNova / FedAvg for the baselines,
+  6. delay / energy are charged per Sec. II-E and reported through
+     :class:`~repro_torch.core.api.RoundReport` callbacks.
+
+Where things live.  The control plane stays on the host: the plan, the
+``(N, B)``-sized network arrays and the delay/energy math are float32 CPU
+tensors (the JAX package pulls them to numpy every round too), and the
+offloading split runs in numpy.  Everything sized by the parameters or
+the data lives on the engine's ``device``: the parameter planes, the
+staged data stacks, the mini-batch indices, the gradients, the kernels'
+work and the eval pass.
+
+Randomness.  The numpy ``RandomState`` streams (rates, offloading) match
+the JAX package bit for bit; the mini-batch draws come from one
+``torch.Generator`` on ``device`` seeded from ``opts.seed`` where the JAX
+package uses a ``jax.random`` key chain, so the two differ there.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import aggregation, fedprox
+from repro_torch.core import strategies as _strategies  # noqa: F401  (registers)
+from repro_torch.core.api import (DecisionContext, EngineOptions,
+                                  RoundCallback, RoundPlan, RoundReport,
+                                  RunResult, get_strategy, weighted_mean)
+from repro_torch.device import require_device
+from repro_torch.kernels.plane import as_plane, as_tree
+from repro_torch.network.costs import network_costs, round_delay, \
+    round_energy
+from repro_torch.scenario.base import get_scenario
+
+
+# ------------------------------------------------------- offloading -----
+
+def realize_offloading(rng, data_per_ue: List[dict], w, net):
+    """Split each UE's round data per rho_nb / rho_bs into DPU datasets.
+
+    Returns (ue_datasets, dc_datasets) as lists of {'x','y'} numpy dicts
+    (None for a DC that received nothing).  The split conserves
+    datapoints exactly: every input point lands at exactly one DPU, even
+    in the all-offload edge case (each UE always keeps at least one point
+    by clawing it back from its BS allocation) and the degenerate case
+    where every rho_bs share floors to zero (the whole BS pool then goes
+    to the DC with the largest rho share).  The floors take float32
+    shares, as the JAX package does, so both split identically.
+    """
+    if isinstance(w, RoundPlan):
+        w = w.to_w()
+    N, B, S = net.dims
+    rho_nb = np.asarray(w["rho_nb"], np.float32)
+    rho_bs = np.asarray(w["rho_bs"], np.float32)
+    bs_pool_x, bs_pool_y = [[] for _ in range(B)], [[] for _ in range(B)]
+    ue_data = []
+    for n, d in enumerate(data_per_ue):
+        x, y = np.asarray(d["x"]), np.asarray(d["y"])
+        D = len(y)
+        if D == 0:
+            ue_data.append({"x": x, "y": y})
+            continue
+        perm = rng.permutation(D)
+        counts = np.floor(rho_nb[n] * D).astype(int)
+        # all-offload guard: every UE keeps >= 1 point, taken back from
+        # its largest BS allocation (rather than duplicating a point)
+        excess = counts.sum() - (D - 1)
+        while excess > 0:
+            j = int(np.argmax(counts))
+            take = min(excess, counts[j])
+            counts[j] -= take
+            excess -= take
+        start = 0
+        for b in range(B):
+            take = perm[start:start + counts[b]]
+            start += counts[b]
+            if len(take):
+                bs_pool_x[b].append(x[take])
+                bs_pool_y[b].append(y[take])
+        keep = perm[start:]
+        ue_data.append({"x": x[keep], "y": y[keep]})
+    dc_x, dc_y = [[] for _ in range(S)], [[] for _ in range(S)]
+    for b in range(B):
+        if not bs_pool_x[b]:
+            continue
+        x = np.concatenate(bs_pool_x[b])
+        y = np.concatenate(bs_pool_y[b])
+        perm = rng.permutation(len(y))
+        counts = np.floor(rho_bs[b] * len(y)).astype(int)
+        # BSs keep no data: the rounding remainder goes to the DC with the
+        # largest rho share (covers the all-floored-to-zero pool case);
+        # shave from the largest counts if a row ever over-allocates.
+        rem = len(y) - counts.sum()
+        while rem < 0:
+            j = int(np.argmax(counts))
+            give = min(-rem, counts[j])
+            counts[j] -= give
+            rem += give
+        counts[int(np.argmax(rho_bs[b]))] += rem
+        start = 0
+        for s in range(S):
+            take = perm[start:start + counts[s]]
+            start += counts[s]
+            if len(take):
+                dc_x[s].append(x[take])
+                dc_y[s].append(y[take])
+    dc_data = []
+    for s in range(S):
+        if dc_x[s]:
+            dc_data.append({"x": np.concatenate(dc_x[s]),
+                            "y": np.concatenate(dc_y[s])})
+        else:
+            dc_data.append(None)
+    return ue_data, dc_data
+
+
+# -------------------------------------------------------- executor -----
+
+def _plan_settings(plan: RoundPlan):
+    gammas = np.maximum(np.rint(plan.gamma.numpy()), 1).astype(int)
+    ms = np.clip(plan.m.numpy(), 0.05, 1.0)
+    return gammas, ms
+
+
+def live_dpus(datasets) -> list:
+    """(DPU index, dataset) of every DPU that holds data this round."""
+    return [(i, d) for i, d in enumerate(datasets)
+            if d is not None and len(d["y"])]
+
+
+def dpu_groups(plan: RoundPlan, live) -> Dict[tuple, list]:
+    """Positions in ``live`` grouped by (gamma, m, mini-batch bucket): each
+    group trains with one ``fedprox_accum`` launch per local step."""
+    gammas, ms = _plan_settings(plan)
+    groups: Dict[tuple, list] = {}
+    for j, (i, d) in enumerate(live):
+        bucket = fedprox._bucket(fedprox.batch_size(len(d["y"]), ms[i]))
+        groups.setdefault((int(gammas[i]), float(ms[i]), bucket),
+                          []).append(j)
+    return groups
+
+
+def _aggregate(params, results, agg: str, *, eta: float,
+               theta: Optional[float]):
+    weights = [r.num_examples for r in results]
+    if agg == "fedavg":
+        return aggregation.fedavg_aggregate(
+            [r.params for r in results], weights)
+    if agg == "fednova":
+        return aggregation.fednova_aggregate(
+            params, [r.d_i for r in results], weights,
+            [r.gamma for r in results], eta=eta)
+    wn = np.asarray(weights, float)
+    wn = wn / wn.sum()
+    theta_val = theta if theta is not None else float(
+        np.sum(wn * np.array([r.gamma for r in results])))   # tau_eff
+    return aggregation.aggregate(params, [r.d_i for r in results], weights,
+                                 theta=theta_val, eta=eta)
+
+
+class SimExecutor:
+    """Simulation backend: per-DPU FedProx on each DPU's own dataset, on
+    the parameters' device.
+
+    DPUs sharing (gamma, m, mini-batch bucket) train as one group: one
+    batched loss/grad and one ``fedprox_accum`` launch per local step.
+    Aggregation is one ``nova_aggregate`` launch over the stacked d_i
+    planes (FedAvg averages the local models instead).
+
+    A round whose live DPUs form ONE group under eq.-11 or FedNova
+    aggregation runs as a single program (``fedprox.local_round_plane``):
+    training + eq. 10 + eq. 11 and, when ``eval_fn`` is given, the eval
+    pass on the new model.
+    """
+
+    def run_round(self, params, plan: RoundPlan, datasets, *, loss_fn,
+                  eta: float, mu: float, theta: Optional[float], agg: str,
+                  generator: torch.Generator, eval_fn=None):
+        """Returns ``(new_params, mean_loss, acc)``; ``acc`` is None unless
+        the round fused its eval (the caller then evaluates)."""
+        params = as_plane(params)
+        live = live_dpus(datasets)
+        if not live:
+            return params, float("nan"), None
+        groups = dpu_groups(plan, live)
+        if len(groups) == 1 and agg in ("cefl", "fednova"):
+            (gamma, m, _bucket), idxs = next(iter(groups.items()))
+            # tau_eff = sum_i p_i gamma_i degenerates to gamma here,
+            # which is also FedNova's theta
+            theta_val = float(theta) if (agg == "cefl"
+                                         and theta is not None) \
+                else float(gamma)
+            Ds = [len(live[j][1]["y"]) for j in idxs]
+            new_params, losses, acc = fedprox.local_round_plane(
+                params, loss_fn, [live[j][1] for j in idxs],
+                gamma=gamma, m_frac=m, eta=eta, mu=mu, generator=generator,
+                theta=theta_val, eval_fn=eval_fn)
+            return new_params, weighted_mean(list(losses), Ds), acc
+        results = [None] * len(live)
+        for (gamma, m, _bucket), idxs in groups.items():
+            out = fedprox.local_train_batched(
+                params, loss_fn, [live[j][1] for j in idxs],
+                gamma=gamma, m_frac=m, eta=eta, mu=mu, generator=generator)
+            for j, r in zip(idxs, out):
+                results[j] = r
+        new_params = _aggregate(params, results, agg, eta=eta, theta=theta)
+        mean_loss = weighted_mean([r.loss for r in results],
+                                  [r.num_examples for r in results])
+        return new_params, mean_loss, None
+
+
+# ----------------------------------------------------------- engine -----
+
+@dataclasses.dataclass
+class LoopState:
+    """The full mutable state of one orchestration run between rounds:
+    the host ``RandomState``, the device ``torch.Generator`` of the
+    mini-batch draws, the parameter plane and the run's accounting.
+    ``loss_fn`` / ``eval_fn`` are behavior, not state."""
+    rng: np.random.RandomState
+    generator: torch.Generator
+    params: object
+    loss_fn: object = None
+    eval_fn: object = None
+    reports: List[RoundReport] = dataclasses.field(default_factory=list)
+    cum_E: float = 0.0
+    cum_D: float = 0.0
+    plan: Optional[RoundPlan] = None
+    prev_agg: Optional[int] = None
+    t: int = 0
+    stopped: bool = False
+    last_acc: float = float("nan")
+
+
+@dataclasses.dataclass
+class StagedRound:
+    """Host-side output of :meth:`Engine.begin_round`: everything the
+    executor needs to run the device work of round ``t``."""
+    t: int
+    net_t: object
+    D_bar: np.ndarray
+    plan: RoundPlan
+    datasets: list                 # ue_data + dc_data, one entry per DPU
+    n_dc: int
+    events: object
+    t0: float
+
+
+class Engine:
+    """Drives the CE-FL loop with a pluggable strategy on one device.
+
+    >>> engine = Engine(net, "greedy_data", consts=consts, ow=ow,
+    ...                 opts=EngineOptions(rounds=8), device="cuda")
+    >>> result = engine.run(online_ues, init_params=p0,
+    ...                     loss_fn=classifier_loss, eval_fn=eval_fn)
+    >>> result.final.acc, result.to_history()["loss"]
+
+    ``device`` defaults to ``"cuda"``; a CPU run must be asked for with
+    ``device="cpu"``, and a CUDA request without a card raises.
+    """
+
+    def __init__(self, net, strategy=None, *, consts, ow,
+                 opts: Optional[EngineOptions] = None,
+                 callbacks: Sequence[RoundCallback] = (), device="cuda"):
+        """``callbacks`` get each round's report; one returning True stops
+        the run after that round."""
+        self.device = require_device(device)
+        self.net = net
+        self.opts = opts or EngineOptions()
+        self.strategy = get_strategy(
+            strategy if strategy is not None else self.opts.strategy)
+        self.scenario = get_scenario(self.opts.scenario)
+        self.executor = SimExecutor()
+        self.callbacks: List[RoundCallback] = list(callbacks)
+        self.consts = consts
+        self.ow = ow
+
+    def decide(self, net_t, D_bar, t: int,
+               prev_plan: Optional[RoundPlan]) -> RoundPlan:
+        ctx = DecisionContext(round=t, consts=self.consts, ow=self.ow,
+                              opts=self.opts, prev_plan=prev_plan)
+        plan = self.strategy.decide(
+            net_t, torch.as_tensor(D_bar, dtype=torch.float32), ctx)
+        return plan.validate(net_t)
+
+    # --- the round loop, exposed one round at a time -------------------
+    #
+    # Engine.run is init_loop + while + (begin_round, execute_round,
+    # finish_round): host work, device work, accounting.
+
+    @property
+    def aggregation(self) -> str:
+        return getattr(self.strategy, "aggregation", "cefl")
+
+    @property
+    def mu_effective(self) -> float:
+        return self.opts.mu if getattr(self.strategy, "proximal", True) \
+            else 0.0
+
+    def init_loop(self, online_datasets, *, init_params, loss_fn=None,
+                  eval_fn=None) -> LoopState:
+        """Bind the scenario and build the round-0 loop state.
+        ``init_params``: a dict tree of tensors or a ParamPlane; it is
+        flattened onto a plane on the engine's device."""
+        del online_datasets  # streams carry their own state
+        plane = as_plane(init_params)
+        plane = plane.with_data(plane.data.to(self.device))
+        self.scenario.bind(self.net, self.opts)
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(self.opts.seed)
+        return LoopState(rng=np.random.RandomState(self.opts.seed),
+                         generator=generator, params=plane,
+                         loss_fn=loss_fn, eval_fn=eval_fn)
+
+    def begin_round(self, state: LoopState, online_datasets) -> StagedRound:
+        """Host side of round ``state.t``: scenario tick, plan decision,
+        offloading realization.  Mutates ``state`` (rng, plan)."""
+        t = state.t
+        t0 = time.time()
+        net_t, data_per_ue, events = self.scenario.step(
+            t, online_datasets, state.rng)
+        D_bar = np.array([len(d["y"]) for d in data_per_ue], float)
+        if state.plan is None or t % self.opts.reoptimize_every == 0:
+            state.plan = self.decide(net_t, D_bar, t, prev_plan=state.plan)
+        ue_data, dc_data = realize_offloading(state.rng, data_per_ue,
+                                              state.plan, net_t)
+        return StagedRound(t=t, net_t=net_t, D_bar=D_bar, plan=state.plan,
+                           datasets=ue_data + dc_data, n_dc=len(dc_data),
+                           events=events, t0=t0)
+
+    def should_eval(self, t: int) -> bool:
+        every = max(1, self.opts.eval_every)
+        return t % every == 0 or t == self.opts.rounds - 1
+
+    def execute_round(self, state: LoopState, staged: StagedRound):
+        """Device phase of round ``staged.t``: the executor call, with the
+        eval pass handed in on eval-cadence rounds.  Updates
+        ``state.params`` and returns ``(mean_loss, acc)``; ``acc`` is None
+        unless the round fused its eval."""
+        eval_fn = state.eval_fn if self.should_eval(staged.t) else None
+        state.params, mean_loss, acc = self.executor.run_round(
+            state.params, staged.plan, staged.datasets,
+            loss_fn=state.loss_fn, eta=self.opts.eta, mu=self.mu_effective,
+            theta=self.opts.theta, agg=self.aggregation,
+            generator=state.generator, eval_fn=eval_fn)
+        return mean_loss, acc
+
+    def finish_round(self, state: LoopState, staged: StagedRound,
+                     mean_loss: float, acc: Optional[float] = None) -> \
+            RoundReport:
+        """Account the finished round: costs, eval (per the cadence),
+        report, callbacks.  Advances ``state.t``."""
+        plan = staged.plan
+        costs = network_costs(plan.to_w(), staged.net_t, staged.D_bar)
+        E = float(round_energy(costs, self.ow.xi3_sub))
+        Dl = float(round_delay(costs))
+        state.cum_E += E
+        state.cum_D += Dl
+        if acc is None:
+            if self.should_eval(staged.t):
+                with torch.no_grad():
+                    acc = float(state.eval_fn(as_tree(state.params)))
+            else:
+                acc = state.last_acc
+        state.last_acc = float(acc)
+        gammas, ms = _plan_settings(plan)
+        dc_data = staged.datasets[len(staged.datasets) - staged.n_dc:]
+        report = RoundReport(
+            round=staged.t, acc=float(acc), loss=mean_loss,
+            energy=E, delay=Dl, cum_energy=state.cum_E,
+            cum_delay=state.cum_D,
+            aggregator=plan.aggregator,
+            dc_points=tuple(0 if d is None else len(d["y"])
+                            for d in dc_data),
+            gamma_mean=float(gammas.mean()), m_mean=float(ms.mean()),
+            plan=plan, wall_time=time.time() - staged.t0,
+            handovers=tuple(staged.events.handovers),
+            aggregator_moved=(state.prev_agg is not None
+                              and plan.aggregator != state.prev_agg),
+            active_ues=int(staged.events.active_ues))
+        state.prev_agg = plan.aggregator
+        state.reports.append(report)
+        for cb in self.callbacks:
+            if cb(report) is True:
+                state.stopped = True
+        state.t += 1
+        return report
+
+    def run(self, online_datasets, *, init_params, loss_fn,
+            eval_fn) -> RunResult:
+        """Run the full orchestration loop.
+
+        ``online_datasets``: one ``core.drift.OnlineDataset`` per UE.
+        ``loss_fn(params, batch, example_weights)``: params with a leading
+        DPU axis, ``(G, B, ...)`` batch, ``(G, B)`` weights -> ``(G,)``
+        losses.  ``eval_fn(params) -> accuracy``.
+        """
+        state = self.init_loop(online_datasets, init_params=init_params,
+                               loss_fn=loss_fn, eval_fn=eval_fn)
+        return self.run_loop(state, online_datasets)
+
+    def run_loop(self, state: LoopState, online_datasets) -> RunResult:
+        """Drive an initialized LoopState to completion."""
+        while state.t < self.opts.rounds and not state.stopped:
+            staged = self.begin_round(state, online_datasets)
+            mean_loss, acc = self.execute_round(state, staged)
+            self.finish_round(state, staged, mean_loss, acc)
+        return RunResult(reports=state.reports, params=as_tree(state.params))
+

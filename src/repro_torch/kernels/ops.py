@@ -1,0 +1,55 @@
+"""Plane-level kernel ops and their dispatch (counterpart of
+``repro.kernels.ops``, plane level).
+
+Dispatch is decided by the tensors' device and nothing else: a CUDA tensor
+launches the hand-written kernel (or the wrapper raises), a CPU tensor
+runs the plain version from ``ref.py``.  There is no fall-back from one to
+the other, no environment variable and no backend knob.
+
+Weight contract: ``normalize_weights`` turns absolute dataset sizes D_i
+into simplex weights, once; the kernel level takes normalized weights and
+never normalizes again.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels import cuda
+from repro_torch.kernels import fedprox_update as _fp
+from repro_torch.kernels import nova_aggregate as _na
+from repro_torch.kernels import ref as _ref
+
+LAUNCHES = cuda.LAUNCHES   # launches per kernel, counted by the wrappers
+reset_launches = cuda.reset_launches
+
+
+def normalize_weights(weights: Sequence) -> torch.Tensor:
+    """Absolute D_i -> simplex weights (f32, on the CPU unless ``weights``
+    is a tensor elsewhere).  THE single normalization point."""
+    w = torch.as_tensor(weights, dtype=torch.float32)
+    return w / torch.sum(w)
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    return x.device.type == "cpu"
+
+
+def fedprox_accum_plane(x, g, anchor, acc, coef, active, eta, mu):
+    """Batched proximal step + eq.-10 accumulation on (G, R, LANE) planes
+    (one launch per local iteration for a whole DPU group)."""
+    coef = torch.as_tensor(coef, dtype=torch.float32, device=x.device)
+    active = torch.as_tensor(active, dtype=torch.float32, device=x.device)
+    if _on_cpu(x):
+        return _ref.fedprox_accum_ref(x, g, anchor, acc, coef, active,
+                                      eta, mu)
+    return _fp.fedprox_accum(x, g, anchor, acc, coef, active, eta, mu)
+
+
+def nova_aggregate_plane(x, d_stack, weights, theta_eta):
+    """eq. 11 on an (R, LANE) plane.  ``weights`` must be normalized."""
+    w = torch.as_tensor(weights, dtype=torch.float32, device=x.device)
+    if _on_cpu(x):
+        return _ref.nova_aggregate_ref(x, d_stack, w, theta_eta)
+    return _na.nova_aggregate(x, d_stack, w, theta_eta)

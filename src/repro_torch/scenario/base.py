@@ -1,0 +1,99 @@
+"""Scenario protocol + registry: per-round evolution of the CE-FL world.
+Counterpart of ``repro.scenario.base`` (the protocol, the registry and the
+static world).
+
+A :class:`Scenario` advances the network (a fresh ``Network`` with
+re-derived rates, same dims and cfg) and the data (per-UE round datasets)
+each round, and reports what happened as :class:`ScenarioEvents`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Protocol, Sequence, Tuple, \
+    runtime_checkable
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioEvents:
+    """What the environment did this round (consumed by ``RoundReport``)."""
+    round: int
+    handovers: Tuple[Tuple[int, int, int], ...] = ()  # (ue, old_bs, new_bs)
+    joined: Tuple[int, ...] = ()                      # UEs back online
+    left: Tuple[int, ...] = ()                        # UEs gone offline
+    mesh_down: Tuple[Tuple[int, int], ...] = ()       # DC-DC links in outage
+    active_ues: int = -1
+
+
+@runtime_checkable
+class Scenario(Protocol):
+    """Pluggable environment dynamics.
+
+    ``bind`` attaches the scenario to a base network + engine options and
+    resets all internal state; ``step`` advances one global round and
+    returns ``(net_t, data_per_ue, events)``.  ``step`` must call
+    ``ds.step()`` on every online dataset exactly once per round and draw
+    any scenario randomness from the passed ``rng`` (the engine's seeded
+    ``RandomState``), so a run is a pure function of the seed.
+    """
+
+    def bind(self, net, opts) -> None:
+        ...
+
+    def step(self, t: int, online_datasets: Sequence, rng):
+        ...
+
+
+_SCENARIO_REGISTRY: Dict[str, Callable[..., Scenario]] = {}
+
+
+def register_scenario(name: str):
+    """Class/function decorator: ``@register_scenario("static")``.  The
+    factory is called with the optional ``:``-suffix of the spec string."""
+    if ":" in name:
+        raise ValueError(f"scenario name {name!r} must not contain ':'")
+
+    def deco(factory):
+        if name in _SCENARIO_REGISTRY:
+            raise ValueError(f"scenario {name!r} already registered")
+        _SCENARIO_REGISTRY[name] = factory
+        return factory
+    return deco
+
+
+def available_scenarios() -> List[str]:
+    return sorted(_SCENARIO_REGISTRY)
+
+
+def get_scenario(spec) -> Scenario:
+    """Resolve ``"name"`` / ``"name:arg"`` / a scenario instance."""
+    if not isinstance(spec, str):
+        return spec
+    name, _, arg = spec.partition(":")
+    try:
+        factory = _SCENARIO_REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown scenario {name!r}; available: "
+            f"{available_scenarios()}") from None
+    return factory(arg) if arg else factory()
+
+
+@register_scenario("static")
+class StaticScenario:
+    """The frozen world: per-round lognormal rate jitter of
+    ``opts.rate_jitter`` (``Network.resample_rates``) and untouched online
+    datasets."""
+
+    def __init__(self):
+        self._net = None
+        self._jitter = None
+
+    def bind(self, net, opts):
+        self._net = net
+        self._jitter = opts.rate_jitter
+
+    def step(self, t, online_datasets, rng):
+        data = [ds.step() for ds in online_datasets]
+        net_t = self._net.resample_rates(rng, self._jitter)
+        return net_t, data, ScenarioEvents(round=t,
+                                           active_ues=len(online_datasets))
