@@ -19,14 +19,24 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              must have launched exactly as often as the rounds' DPU groups
              say, and the groups give the shapes of those launches.
              Losses must be finite, final accuracy above chance.
-3. kernels — each hand-written kernel against its plain PyTorch version on
-             the same card tensors, at every shape the path launched it
+3. threat  — the adversarial path in the same world: ``byzantine`` (4 of
+             20 UEs sign-flip their updates x4) under ``greedy_data`` with
+             the trimmed mean (trim 0.2) for 3 rounds, under ``fedavg``
+             with the median (robust FedAvg) for 2, and ``stragglers``
+             (mobility, handover, dropout, 4x slower compute) under
+             ``fednova`` with the median for 2.  Counters are set to 0
+             just before and read just after; every round must launch
+             ``robust_aggregate`` once, ``nova_aggregate`` never and
+             ``fedprox_accum`` gamma times per DPU group.  Losses finite,
+             final accuracies above chance.
+4. kernels — each hand-written kernel against its plain PyTorch version on
+             the same card tensors, at every shape the paths launched it
              with and at extra cases, with the tolerance stated below;
              then each is timed with CUDA events (median of 30 launches,
              L2 flushed before each) beside its plain version, its bound
              and a one-call PyTorch yardstick where one exists.  The
-             kernels line reports the largest group the path launched.
-4. check   — one fused round at paper width on the card against the same
+             kernels line reports the largest group the paths launched.
+5. check   — one fused round at paper width on the card against the same
              staged round on the CPU (plain versions), to the stated
              tolerance.
 
@@ -61,7 +71,15 @@ REPLACES = {
                       "src/repro/kernels/fedprox_update.py:135"),
     "nova_aggregate": ("src/repro_torch/kernels/csrc/nova_aggregate.cu",
                        "src/repro/kernels/nova_aggregate.py:85"),
+    "robust_aggregate": ("src/repro_torch/kernels/csrc/robust_aggregate.cu",
+                         "src/repro/kernels/robust_aggregate.py:52"),
 }
+
+# The threat path: (scenario, strategy, robust mode, rounds).
+THREAT_RUNS = [("byzantine", "greedy_data", "trimmed_mean", 3),
+               ("byzantine", "fedavg", "median", 2),
+               ("stragglers", "fednova", "median", 2)]
+TRIM_FRAC = 0.2
 
 
 def log(*args):
@@ -72,6 +90,29 @@ def card_rates(name: str):
     if name not in CARDS:
         raise RuntimeError(f"no published rates for card {name!r}")
     return CARDS[name]
+
+
+def ptxas_summary(log_text: str):
+    """(function, "N registers; stack / spill line") per function in
+    nvcc's ``-Xptxas=-v`` output, kernels named by their template
+    arguments (e.g. ``robust_aggregate_kernel<float, 32>``)."""
+    import re
+    out, fn = [], None
+    for ln in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            t = re.search(r"([a-z_]+_kernel)I(\w+?)(?:Li(\d+)E)?E", fn)
+            if t:
+                dt = {"f": "float", "13__nv_bfloat16": "bf16"}.get(
+                    t.group(2), t.group(2))
+                fn = f"{t.group(1)}<{dt}" + (
+                    f", {t.group(3)}>" if t.group(3) else ">")
+            out.append([fn, ""])
+        elif fn is not None and ("stack frame" in ln or "registers" in ln):
+            out[-1][1] += ("; " if out[-1][1] else "") + \
+                ln.replace("ptxas info    :", "").strip()
+    return [tuple(x) for x in out]
 
 
 def smi_name_power() -> str:
@@ -136,8 +177,9 @@ def within(got, want, atol) -> dict:
     else:
         bound = torch.full_like(err, atol)
         rule = "abs"
+    ratio = torch.where(err == 0, torch.zeros_like(err), err / bound)
     return {"max_abs_err": float(err.max()), "tol": float(bound.max()),
-            "tol_rule": rule, "worst": float((err / bound).max()),
+            "tol_rule": rule, "worst": float(ratio.max()),
             "ok": bool(torch.all(err <= bound))}
 
 
@@ -148,10 +190,10 @@ def _both(a, b) -> dict:
             "worst": max(a["worst"], b["worst"]), "ok": a["ok"] and b["ok"]}
 
 
-# ---------------------------------------------------- phase 3: kernels --
+# ---------------------------------------------------- phase 4: kernels --
 
 def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
-    """Every kernel against its plain version: at each shape the main path
+    """Every kernel against its plain version: at each shape the paths
     launched it with (``path_shapes``: kernel -> {(G or n, R): launches};
     f32, shared anchor, as the path runs) and at the extra cases below.
     Every R = 176 case is timed.  Returns the per-case rows and, per
@@ -261,6 +303,173 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
             main["nova_aggregate"] = row
         rows.append(row)
         log(f"  {_fmt(row)}")
+    return rows, main
+
+
+def network_pairs(nmax: int):
+    """The compare-exchanges (i, j) of Batcher's odd-even merge sort of
+    ``nmax`` values, in the order ``csrc/robust_sort.cuh`` runs them."""
+    out = []
+
+    def merge(lo, n, r):
+        m = 2 * r
+        if m < n:
+            merge(lo, n, m)
+            merge(lo + r, n, m)
+            out.extend((i, i + r) for i in range(lo + r, lo + n - r, m))
+        else:
+            out.append((lo, lo + r))
+
+    def sort(lo, n):
+        if n > 1:
+            sort(lo, n // 2)
+            sort(lo + n // 2, n // 2)
+            merge(lo, n, 1)
+
+    sort(0, nmax)
+    return out
+
+
+def robust_operations(n: int, m: int, R: int) -> int:
+    """Operations the robust reduce needs for n values per coordinate: two
+    (a min and a max) per compare-exchange of the network on n values
+    (the NMAX network without the exchanges that touch only padding,
+    which never move), m - 1 adds and one divide for the m averaged
+    values, a multiply and a subtract for the update."""
+    nmax = 1 << max(n - 1, 0).bit_length()
+    ces = sum(1 for _, j in network_pairs(nmax) if j < n)
+    return R * 1024 * (2 * ces + m + 2)
+
+
+def _within_nonfinite(got, want, atol) -> dict:
+    """``within`` for outputs with NaN / +-inf: those must sit at the same
+    places with the same values; the finite rest is held to ``within``."""
+    g, w = got.float(), want.float()
+    same = bool(torch.equal(torch.isnan(g), torch.isnan(w))
+                and torch.equal(g[torch.isinf(w)], w[torch.isinf(w)]))
+    fin = torch.isfinite(w)
+    res = within(got[fin], want[fin], atol)
+    res["ok"] = res["ok"] and same
+    return res
+
+
+def robust_checks(dev, timer, bw, f32_rate, path_shapes):
+    """``robust_aggregate`` against its plain version at every
+    (n, R, mode, k, form) the threat path launched it with, and at the
+    extra cases: n in {1, 2, 3, 5, 20, 25, 32, 33, 64}, the median and
+    the trimmed mean at k in {0, trim_count(n, 0.2), (n-1)//2}, R in {24,
+    40, 176}, f32 and bf16; a tie-heavy stack, NaN and +-inf entries, and
+    the robust-FedAvg form x = 0, theta_eta = -1.  Tolerance: the median
+    is bitwise equal (the same sorted values, one add and a halving for
+    even n, and an unfused multiply and subtract in both); the trimmed
+    mean within two f32 ulps of the largest |x| plus |theta_eta| * 2m
+    ulps of the largest |d| (m = n - 2k values summed, in sorted order in
+    the kernel and in torch's order in the plain version, which on the
+    card also multiplies by 1/m where the kernel divides).  bf16: one
+    bf16 ulp of the result or that bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import robust_aggregate as kra
+    from repro_torch.kernels.plane import LANE
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows, main = [], None
+
+    def case(n, R, dt, mode, k, form, on_path, special=None, timed=False):
+        median = mode == "median"
+        m = (1 if n % 2 else 2) if median else n - 2 * k
+        d = torch.randn((n, R, LANE), generator=gen, device=dev)
+        if special == "ties":
+            base = d[0].clone()
+            for i in range(n):
+                d[i] = (base, -4 * base, torch.zeros_like(base))[i % 3]
+        elif special == "nonfinite":
+            d[0, :, :256] = float("nan")
+            d[1 % n, :, 128:384] = float("inf")
+            d[2 % n, :, 300:500] = float("-inf")
+        d = d.to(dt)
+        if form == "fedavg":
+            x, theta_eta = torch.zeros((R, LANE), dtype=dt, device=dev), -1.0
+        else:
+            x = torch.randn((R, LANE), generator=gen, device=dev).to(dt)
+            theta_eta = 0.2
+        got = kra.robust_aggregate(x, d, theta_eta, k=k, median=median)
+        want = ref.robust_aggregate_ref(x, d, theta_eta, k=k, median=median)
+        torch.cuda.synchronize()
+        dfin = d.float().abs()
+        dfin = dfin[torch.isfinite(dfin)]
+        dmax = float(dfin.max()) if dfin.numel() else 0.0
+        atol = 0.0 if median else (
+            2 * _spacing(x) + abs(theta_eta) * 2 * m
+            * float(np.spacing(np.float32(dmax))))
+        check = (_within_nonfinite(got, want, atol) if special == "nonfinite"
+                 else within(got, want, atol))
+        if median and dt == f32:
+            check["tol_rule"] = "bitwise"
+        esize = x.element_size()
+        nbytes = esize * R * LANE * (n + 2)
+        flops = robust_operations(n, m, R)
+        row = {"kernel": "robust_aggregate", "G": n, "R": R,
+               "dtype": str(dt).replace("torch.", ""),
+               "anchor": f"{'med' if median else 'tm'} k={k}"
+                         + ("" if form == "eq11" else " fedavg")
+                         + ("" if special is None else f" {special}"),
+               "mode": mode, "k": k, "form": form,
+               "path_launches": on_path, "bytes": nbytes, **check}
+        if timed:
+            row["ms"] = timer(lambda: kra.robust_aggregate(
+                x, d, theta_eta, k=k, median=median))
+            row["plain_ms"] = timer(lambda: ref.robust_aggregate_ref(
+                x, d, theta_eta, k=k, median=median))
+            row["sort_only_ms"] = timer(lambda: torch.sort(d, dim=0))
+            # one call computes the reduce only for the median at odd n
+            # (torch.median takes the lower middle value at even n)
+            row["library_ms"] = (timer(lambda: torch.median(d, dim=0))
+                                 if median and n % 2 else None)
+            row["bound_ms"] = max(nbytes / bw, flops / f32_rate) * 1e3
+            row["bound_by"] = "bytes" if nbytes / bw >= flops / f32_rate \
+                else "operations"
+        rows.append(row)
+        return row
+
+    n_main = max(key[0] for key in path_shapes)
+    for (n, R, mode, k, form), c in sorted(path_shapes.items()):
+        row = case(n, R, f32, mode, k, form, c, timed=(R == 176))
+        log(f"  {_fmt(row)}")
+        if n == n_main and (main is None or row["ms"] > main["ms"]):
+            main = row
+    extra = 0
+    for n in (1, 2, 3, 5, 20, 25, 32, 33, 64):
+        modes = [("median", 0)] + [
+            ("trimmed_mean", k) for k in
+            sorted({0, ops.trim_count(n, 0.2), (n - 1) // 2})]
+        for mode, k in modes:
+            for R in (24, 40, 176):
+                for dt in (f32, bf16):
+                    timed = (R == 176 and dt == f32 and n in (25, 64)
+                             and k in (0, ops.trim_count(n, 0.2)))
+                    row = case(n, R, dt, mode, k, "eq11", 0, timed=timed)
+                    extra += 1
+                    if timed or not row["ok"]:
+                        log(f"  {_fmt(row)}")
+    for n in (5, 20, 25):
+        for dt in (f32, bf16):
+            for mode, k in (("median", 0),
+                            ("trimmed_mean", ops.trim_count(n, 0.2))):
+                for special, form in (("ties", "eq11"), ("nonfinite", "eq11"),
+                                      (None, "fedavg"), ("ties", "fedavg")):
+                    row = case(n, 40, dt, mode, k, form, 0, special=special)
+                    extra += 1
+                    if not row["ok"]:
+                        log(f"  {_fmt(row)}")
+    worst = max(r["worst"] for r in rows if r["mode"] == "trimmed_mean")
+    bitwise = all(r["max_abs_err"] == 0 for r in rows
+                  if r["mode"] == "median" and r["dtype"] == "float32")
+    log(f"  robust_aggregate: {extra} extra cases (ties, NaN/+-inf, x = 0 "
+        f"and theta_eta = -1 among them), "
+        f"{sum(1 for r in rows if not r['ok'])} outside tolerance; f32 "
+        f"medians bitwise: {bitwise}; worst trimmed-mean err/tol "
+        f"{worst:.2f}")
     return rows, main
 
 
@@ -377,14 +586,15 @@ def drive_path(dev, world):
                 f"{rep.energy:.2f} J  delay {rep.delay:.3f} s  groups "
                 f"{rec['groups']}  examples {rec['examples']}")
     launches = dict(ops.LAUNCHES)              # read just after
-    expected = {k: sum(c.values()) for k, c in shapes.items()}
+    expected = dict.fromkeys(launches, 0)
+    expected.update({k: sum(c.values()) for k, c in shapes.items()})
     log(f"  launches {launches}  expected {expected}")
     for name, c in shapes.items():
         log(f"  {name} launch shapes (G or n, R): launches: {dict(c)}")
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in shapes:
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} never launched on the path")
     if not all(np.isfinite(r["loss"]) for r in records):
         raise AssertionError("a round's loss is not finite")
@@ -393,6 +603,123 @@ def drive_path(dev, world):
         if not acc > 0.1:
             raise AssertionError(f"{strategy}: final accuracy {acc} is not "
                                  "above chance (0.1)")
+    return launches, shapes, records, engines
+
+
+# ----------------------------------------------------- phase 3: threat --
+
+def drive_threat_path(dev, world):
+    """The ``THREAT_RUNS`` on the card, counting launches per round.
+    Returns the launch counts, the robust launch shapes ((n, R, mode, k,
+    form) -> launches, from each round's live DPUs; form "fedavg" is the
+    x = 0, theta_eta = -1 call of robust FedAvg), the fedprox_accum
+    shapes, the per-round records and the engines."""
+    from repro_torch.core.api import EngineOptions
+    from repro_torch.core.engine import Engine, dpu_groups, live_dpus
+    from repro_torch.data.synthetic import make_online_ues
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.plane import as_plane
+    from repro_torch.models.classifier import (classifier_accuracy,
+                                               classifier_loss)
+    from repro_torch.solver.objective import ObjectiveWeights
+
+    net, ((trx, try_), (tex, tey)), p0, consts = world
+    R = as_plane(p0).data.shape[0]
+    ex = torch.from_numpy(tex[:1000]).to(dev)
+    ey = torch.from_numpy(tey[:1000]).to(dev)
+
+    def eval_fn(p):
+        return classifier_accuracy(p, ex, ey)
+
+    engines = []
+    for scenario, strategy, mode, rounds in THREAT_RUNS:
+        ues = make_online_ues(trx, try_, num_ue=20, mean_arrivals=2000.0,
+                              std_arrivals=200.0, seed=0)
+        eng = Engine(net, strategy, consts=consts,
+                     ow=ObjectiveWeights(xi1=1.0, xi2=1e-2, xi3=2.0,
+                                         T=rounds),
+                     opts=EngineOptions(rounds=rounds, eta=0.1, seed=0,
+                                        robust_agg=mode,
+                                        trim_frac=TRIM_FRAC),
+                     scenario=scenario, device=dev)
+        state = eng.init_loop(ues, init_params=p0, loss_fn=classifier_loss,
+                              eval_fn=eval_fn)
+        engines.append((scenario, strategy, mode, eng, state, ues))
+    torch.cuda.synchronize()
+
+    shapes = {"fedprox_accum": Counter(), "robust_aggregate": Counter()}
+    records = []
+    ops.reset_launches()                       # counts to 0: the path
+    for scenario, strategy, mode, eng, state, ues in engines:
+        while state.t < eng.opts.rounds:
+            before = dict(ops.LAUNCHES)
+            t0 = time.perf_counter()
+            staged = eng.begin_round(state, ues)
+            t1 = time.perf_counter()
+            live = live_dpus(staged.datasets)
+            groups = dpu_groups(staged.plan, live)
+            n = len(live)
+            k = ops.robust_kwargs(n, mode, TRIM_FRAC)["k"]
+            form = "fedavg" if eng.aggregation == "fedavg" else "eq11"
+            want = {"fedprox_accum": sum(g for (g, _m, _b) in groups),
+                    "nova_aggregate": 0, "robust_aggregate": 1}
+            for (gamma, _m, _bucket), idxs in groups.items():
+                shapes["fedprox_accum"][(len(idxs), R)] += gamma
+            shapes["robust_aggregate"][(n, R, mode, k, form)] += 1
+            mean_loss, acc = eng.execute_round(state, staged)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rep = eng.finish_round(state, staged, mean_loss, acc)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            got = {name: ops.LAUNCHES[name] - before[name]
+                   for name in before}
+            if got != want:
+                raise AssertionError(f"{scenario}/{strategy} round "
+                                     f"{rep.round}: launches {got} != "
+                                     f"{want}")
+            ev = staged.events
+            rec = {"scenario": scenario, "strategy": strategy,
+                   "robust": mode, "n": n, "k": k, "round": rep.round,
+                   "wall_s": t3 - t0, "host_plan_s": t1 - t0,
+                   "device_round_s": t2 - t1, "account_s": t3 - t2,
+                   "loss": rep.loss, "acc": rep.acc,
+                   "aggregator": rep.aggregator, "energy_J": rep.energy,
+                   "delay_s": rep.delay, "dc_points": rep.dc_points,
+                   "groups": [len(v) for v in groups.values()],
+                   "corrupted": len(ev.corrupted),
+                   "active_ues": ev.active_ues,
+                   "handovers": len(ev.handovers),
+                   "slowed": sum(1 for c in ev.compute_scale if c < 1.0),
+                   "launches": got}
+            records.append(rec)
+            log(f"  {scenario}/{strategy:<11} round {rep.round}: "
+                f"{mode} n={n} k={k}  wall {rec['wall_s']:.3f} s (plan "
+                f"{rec['host_plan_s']:.3f}, device round "
+                f"{rec['device_round_s']:.3f})  loss {rep.loss:.4f}  acc "
+                f"{rep.acc:.3f}  aggregator DC{rep.aggregator}  energy "
+                f"{rep.energy:.2f} J  delay {rep.delay:.3f} s  groups "
+                f"{rec['groups']}  corrupted {rec['corrupted']}  active "
+                f"{rec['active_ues']}  handovers {rec['handovers']}  "
+                f"slowed {rec['slowed']}")
+    launches = dict(ops.LAUNCHES)              # read just after
+    log(f"  launches {launches}")
+    for name, c in shapes.items():
+        log(f"  {name} launch shapes: launches: {dict(c)}")
+    if launches["nova_aggregate"] != 0:
+        raise AssertionError("nova_aggregate launched on a robust round")
+    for name in ("fedprox_accum", "robust_aggregate"):
+        if launches[name] != sum(shapes[name].values()) or \
+                launches[name] == 0:
+            raise AssertionError(f"kernel {name}: {launches[name]} "
+                                 "launches on the threat path")
+    if not all(np.isfinite(r["loss"]) for r in records):
+        raise AssertionError("a threat round's loss is not finite")
+    for scenario, strategy, mode, _, state, _ in engines:
+        acc = state.reports[-1].acc
+        if not acc > 0.1:
+            raise AssertionError(f"{scenario}/{strategy}/{mode}: final "
+                                 f"accuracy {acc} is not above chance")
     return launches, shapes, records, engines
 
 
@@ -420,6 +747,14 @@ def staging_and_profile(dev, engines):
         f"data in {stage_s * 1e3:.1f} ms")
 
     strategy, eng, state, ues = engines[1]
+    return {"staging_bytes": nbytes, "staging_s": stage_s,
+            **profile_round("fednova", eng, state, ues)}
+
+
+def profile_round(label, eng, state, ues):
+    """One more round of ``eng`` (after the counted path) under
+    ``torch.profiler``: its wall time, device busy time and the kernels
+    that took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -431,6 +766,7 @@ def staging_and_profile(dev, engines):
         eng.finish_round(state, staged, mean_loss, acc)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+
     def device_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
@@ -441,17 +777,17 @@ def staging_and_profile(dev, engines):
     top = sorted(events, key=lambda e: -device_us(e))[:12]
     table = [{"name": e.key, "calls": e.count,
               "device_ms": device_us(e) / 1e3} for e in top]
-    log(f"  profiled fednova round: wall {wall * 1e3:.1f} ms, device busy "
+    log(f"  profiled {label} round: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.2f} ms ({100 * busy_us / 1e3 / (wall * 1e3):.2f}"
         f" % of wall)")
     for r in table[:6]:
-        log(f"    {r['device_ms']:9.3f} ms  {r['calls']:4d}x  {r['name'][:70]}")
-    return {"staging_bytes": nbytes, "staging_s": stage_s,
-            "profiled_round_wall_s": wall,
+        log(f"    {r['device_ms']:9.3f} ms  {r['calls']:4d}x  "
+            f"{r['name'][:70]}")
+    return {"profiled_round_wall_s": wall,
             "profiled_round_device_ms": busy_us / 1e3, "top": table}
 
 
-# ----------------------------------------------------- phase 4: check --
+# ----------------------------------------------------- phase 5: check --
 
 def reference_check(dev, world):
     """One fused round at paper width, staged once on the CPU: the card
@@ -528,10 +864,12 @@ def main() -> int:
     t0 = time.perf_counter()
     built = cuda.build()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    OUT.mkdir(parents=True, exist_ok=True)
     for name, (secs, out) in sorted(built.items()):
-        info = [ln.strip() for ln in out.splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"  {name}: {secs:.1f} s; " + " | ".join(info))
+        (OUT / f"build_{name}.log").write_text(out)
+        log(f"  {name}: {secs:.1f} s")
+        for fn, props in ptxas_summary(out):
+            log(f"    {fn}: {props}")
 
     log("phase 2: the main path at paper width (greedy_data x3, fednova x2)")
     world = paper_world(dev)
@@ -541,25 +879,45 @@ def main() -> int:
     log(f"  peak device memory {peak / 2**20:.1f} MiB")
     extra = staging_and_profile(dev, engines)
 
-    log(f"phase 3: kernels vs plain versions at the path's shapes and extra "
+    log("phase 3: the threat path at paper width (byzantine + greedy_data "
+        "trimmed mean x3, byzantine + fedavg median x2, stragglers + "
+        "fednova median x2)")
+    torch.cuda.reset_peak_memory_stats()
+    t_launches, t_shapes, t_records, t_engines = drive_threat_path(dev,
+                                                                   world)
+    t_peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory {t_peak / 2**20:.1f} MiB")
+    scenario, strategy, mode, eng, state, ues = t_engines[0]
+    t_profile = profile_round(f"{scenario} + {strategy} {mode}", eng,
+                              state, ues)
+
+    log(f"phase 4: kernels vs plain versions at the paths' shapes and extra "
         f"cases ({smi})")
     timer = Timer(dev)
-    rows, main_rows = kernel_checks(dev, timer, bw, f32_rate, shapes)
+    # fedprox_accum at every group size either path launched it with
+    checked = {"fedprox_accum": shapes["fedprox_accum"]
+               + t_shapes["fedprox_accum"],
+               "nova_aggregate": shapes["nova_aggregate"]}
+    rows, main_rows = kernel_checks(dev, timer, bw, f32_rate, checked)
+    r_rows, main_rows["robust_aggregate"] = robust_checks(
+        dev, timer, bw, f32_rate, t_shapes["robust_aggregate"])
+    rows += r_rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel case(s) disagree with the "
                              f"plain version: {bad}")
     del timer
 
-    log("phase 4: one fused round, card vs CPU")
+    log("phase 5: one fused round, card vs CPU")
     round_err = reference_check(dev, world)
 
     kernels = []
-    for name in ("fedprox_accum", "nova_aggregate"):
+    for name in ("fedprox_accum", "nova_aggregate", "robust_aggregate"):
         r = main_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": REPLACES[name][0],
-            "replaces": REPLACES[name][1], "launches": launches[name],
+            "replaces": REPLACES[name][1],
+            "launches": launches[name] + t_launches[name],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -571,6 +929,10 @@ def main() -> int:
         "rounds": records, "peak_device_bytes": peak,
         "path_launch_shapes": {k: [[G, R, n] for (G, R), n in c.items()]
                                for k, c in shapes.items()},
+        "threat_rounds": t_records, "threat_peak_device_bytes": t_peak,
+        "threat_launches": t_launches, "threat_profile": t_profile,
+        "threat_launch_shapes": {k: [list(key) + [n] for key, n in c.items()]
+                                 for k, c in t_shapes.items()},
         "round_check_max_abs_err": round_err, "staging_profile": extra,
         "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -72,3 +72,32 @@ def fednova_aggregate(x_t, d_list: List, weights: Sequence[float],
     tau_eff = float(torch.sum(p * torch.as_tensor(gammas,
                                                   dtype=torch.float32)))
     return aggregate(x_t, d_list, weights, theta=tau_eff, eta=eta)
+
+
+# ------------------------------------------- byzantine-robust counters --
+
+def robust_aggregate(x_t, d_list: List, *, theta: float, eta: float,
+                     mode: str = "trimmed_mean", trim_frac: float = 0.1):
+    """eq. 11 with the weighted sum replaced by a coordinate-wise trimmed
+    mean / median over the d_i stack, the byzantine counter
+    (``EngineOptions.robust_agg``).  Takes NO weights: the D_i a
+    compromised client reports are not trusted."""
+    x_t = as_plane(x_t)
+    out = ops.robust_aggregate_plane(x_t.data, _stack_planes(d_list),
+                                     theta * eta, mode=mode,
+                                     trim_frac=trim_frac)
+    return x_t.with_data(out)
+
+
+def robust_fedavg_aggregate(local_params: List, *,
+                            mode: str = "trimmed_mean",
+                            trim_frac: float = 0.1):
+    """Robust FedAvg: the coordinate-wise trimmed mean / median of the
+    local models (Yin et al. 2018), through the same kernel with x = 0 and
+    theta_eta = -1, so x_new = reduce(stack)."""
+    stack = _stack_planes(local_params)
+    zero = torch.zeros(stack.shape[1:], dtype=stack.dtype,
+                       device=stack.device)
+    return as_plane(local_params[0]).with_data(
+        ops.robust_aggregate_plane(zero, stack, -1.0, mode=mode,
+                                   trim_frac=trim_frac))

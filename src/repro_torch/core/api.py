@@ -49,6 +49,15 @@ class EngineOptions:
                                     # t % eval_every == 0 and the last
                                     # round; off-cadence rounds carry the
                                     # last measured accuracy forward
+    robust_agg: str = "none"        # byzantine-robust aggregation:
+                                    # "none" (weighted eq. 11), or
+                                    # "trimmed_mean" / "median", the
+                                    # unweighted coordinate-wise reduce
+                                    # over the DPU stack
+                                    # (core.aggregation.robust_aggregate)
+    trim_frac: float = 0.1          # trim fraction per side for
+                                    # robust_agg="trimmed_mean" (k =
+                                    # min(floor(n*frac), (n-1)//2))
 
 
 @dataclasses.dataclass(frozen=True)

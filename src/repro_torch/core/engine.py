@@ -3,15 +3,18 @@
 
 Each global round t (paper Secs. II+IV-VI):
   1. the :class:`~repro_torch.scenario.base.Scenario` evolves the world
-     (per-round rates, newly observed per-UE data),
+     (mobility, handover, mesh churn, per-round rates, drifted per-UE
+     data) and names the round's adversary events,
   2. the :class:`~repro_torch.core.api.DecisionStrategy` picks the plan
      w^t (offloading rho, compute settings f/z/gamma/m, floating
      aggregator I_s),
   3. data offloading is realized (UE -> BS -> DC partitions),
   4. every DPU runs FedProx local training (eqs. 5-10) through
      :class:`SimExecutor`,
-  5. accumulated gradients are aggregated at the floating aggregation DC
-     (eq. 11), or FedNova / FedAvg for the baselines,
+  5. the round's update corruptions are applied, then the accumulated
+     gradients are aggregated at the floating aggregation DC (eq. 11),
+     or FedNova / FedAvg for the baselines, or by the byzantine-robust
+     trimmed mean / median (``EngineOptions.robust_agg``),
   6. delay / energy are charged per Sec. II-E and reported through
      :class:`~repro_torch.core.api.RoundReport` callbacks.
 
@@ -23,10 +26,13 @@ the data lives on the engine's ``device``: the parameter planes, the
 staged data stacks, the mini-batch indices, the gradients, the kernels'
 work and the eval pass.
 
-Randomness.  The numpy ``RandomState`` streams (rates, offloading) match
-the JAX package bit for bit; the mini-batch draws come from one
-``torch.Generator`` on ``device`` seeded from ``opts.seed`` where the JAX
-package uses a ``jax.random`` key chain, so the two differ there.
+Randomness.  The numpy ``RandomState`` streams (scenario ticks, rates,
+offloading) match the JAX package bit for bit; the mini-batch draws and
+the Gaussian update corruption come from one ``torch.Generator`` on
+``device`` seeded from ``opts.seed`` where the JAX package uses a
+``jax.random`` key chain, so the two differ there.  The corruption noise
+is drawn only for live Gaussian targets, so a clean round consumes the
+same draws as before.
 """
 from __future__ import annotations
 
@@ -157,8 +163,24 @@ def dpu_groups(plan: RoundPlan, live) -> Dict[tuple, list]:
 
 
 def _aggregate(params, results, agg: str, *, eta: float,
-               theta: Optional[float]):
+               theta: Optional[float], robust: str = "none",
+               trim_frac: float = 0.1):
     weights = [r.num_examples for r in results]
+    if robust != "none":
+        # byzantine counter: coordinate-wise trimmed mean / median instead
+        # of the weighted sum.  Weight-free, and theta (when not pinned)
+        # is the UNWEIGHTED gamma mean, because the D_i a compromised
+        # client reports are not trusted either.
+        if agg == "fedavg":
+            return aggregation.robust_fedavg_aggregate(
+                [r.params for r in results], mode=robust,
+                trim_frac=trim_frac)
+        theta_val = float(theta) if (agg != "fednova"
+                                     and theta is not None) \
+            else float(np.mean([r.gamma for r in results]))
+        return aggregation.robust_aggregate(
+            params, [r.d_i for r in results], theta=theta_val, eta=eta,
+            mode=robust, trim_frac=trim_frac)
     if agg == "fedavg":
         return aggregation.fedavg_aggregate(
             [r.params for r in results], weights)
@@ -174,6 +196,47 @@ def _aggregate(params, results, agg: str, *, eta: float,
                                  theta=theta_val, eta=eta)
 
 
+def gaussian_noise(generator: torch.Generator):
+    """``noise(like)``: a standard-normal tensor shaped like ``like``,
+    drawn from ``generator`` (on ``like``'s device)."""
+    def noise(like: torch.Tensor) -> torch.Tensor:
+        return torch.randn(like.shape, generator=generator,
+                           device=like.device, dtype=like.dtype)
+    return noise
+
+
+def corrupt_local_results(results, live, corrupt, anchor, noise):
+    """Apply the round's update corruptions (``ScenarioEvents.corrupted``
+    triples ``(ue, mode, scale)``) to the matching ``LocalResult``s, in
+    place, between local training and aggregation.
+
+    sign_flip: d_i -> -scale * d_i and params -> anchor - scale *
+    (params - anchor) (the anchor-relative flip, so FedAvg model averaging
+    sees the same attack direction eq. 11 does).  gauss: adds scale-std
+    Gaussian noise to both, ``noise(d_i)`` then ``noise(params)`` per
+    target in sorted order; ``noise`` is called only for gauss targets
+    that are live this round (:func:`gaussian_noise` draws it from the
+    round's generator; a test hands in the reference's draws).
+    """
+    by_dpu = {i: j for j, (i, _) in enumerate(live)}
+    anchor_data = as_plane(anchor).data
+    for ue, mode, scale in sorted(corrupt):
+        if ue not in by_dpu:
+            continue
+        r = results[by_dpu[ue]]
+        d, p = r.d_i.data, r.params.data
+        if mode == "sign_flip":
+            d = -scale * d
+            p = anchor_data - scale * (p - anchor_data)
+        elif mode == "gauss":
+            d = d + scale * noise(d)
+            p = p + scale * noise(p)
+        else:
+            raise ValueError(f"unknown corruption mode {mode!r}")
+        r.d_i = r.d_i.with_data(d)
+        r.params = r.params.with_data(p)
+
+
 class SimExecutor:
     """Simulation backend: per-DPU FedProx on each DPU's own dataset, on
     the parameters' device.
@@ -186,12 +249,16 @@ class SimExecutor:
     A round whose live DPUs form ONE group under eq.-11 or FedNova
     aggregation runs as a single program (``fedprox.local_round_plane``):
     training + eq. 10 + eq. 11 and, when ``eval_fn`` is given, the eval
-    pass on the new model.
+    pass on the new model.  Update corruption (``corrupt``) and robust
+    aggregation (``robust_agg`` != "none", one ``robust_aggregate``
+    launch) act between training and aggregation, so such rounds never
+    fuse.
     """
 
     def run_round(self, params, plan: RoundPlan, datasets, *, loss_fn,
                   eta: float, mu: float, theta: Optional[float], agg: str,
-                  generator: torch.Generator, eval_fn=None):
+                  generator: torch.Generator, eval_fn=None, corrupt=(),
+                  robust_agg: str = "none", trim_frac: float = 0.1):
         """Returns ``(new_params, mean_loss, acc)``; ``acc`` is None unless
         the round fused its eval (the caller then evaluates)."""
         params = as_plane(params)
@@ -199,7 +266,8 @@ class SimExecutor:
         if not live:
             return params, float("nan"), None
         groups = dpu_groups(plan, live)
-        if len(groups) == 1 and agg in ("cefl", "fednova"):
+        if (len(groups) == 1 and agg in ("cefl", "fednova")
+                and not corrupt and robust_agg == "none"):
             (gamma, m, _bucket), idxs = next(iter(groups.items()))
             # tau_eff = sum_i p_i gamma_i degenerates to gamma here,
             # which is also FedNova's theta
@@ -219,7 +287,11 @@ class SimExecutor:
                 gamma=gamma, m_frac=m, eta=eta, mu=mu, generator=generator)
             for j, r in zip(idxs, out):
                 results[j] = r
-        new_params = _aggregate(params, results, agg, eta=eta, theta=theta)
+        if corrupt:
+            corrupt_local_results(results, live, corrupt, params,
+                                  gaussian_noise(generator))
+        new_params = _aggregate(params, results, agg, eta=eta, theta=theta,
+                                robust=robust_agg, trim_frac=trim_frac)
         mean_loss = weighted_mean([r.loss for r in results],
                                   [r.num_examples for r in results])
         return new_params, mean_loss, None
@@ -276,16 +348,19 @@ class Engine:
     """
 
     def __init__(self, net, strategy=None, *, consts, ow,
-                 opts: Optional[EngineOptions] = None,
+                 opts: Optional[EngineOptions] = None, scenario=None,
                  callbacks: Sequence[RoundCallback] = (), device="cuda"):
-        """``callbacks`` get each round's report; one returning True stops
-        the run after that round."""
+        """``scenario``: a name from the scenario registry ("static",
+        "byzantine:0.2", ...) or a Scenario instance; None takes
+        ``opts.scenario``.  ``callbacks`` get each round's report; one
+        returning True stops the run after that round."""
         self.device = require_device(device)
         self.net = net
         self.opts = opts or EngineOptions()
         self.strategy = get_strategy(
             strategy if strategy is not None else self.opts.strategy)
-        self.scenario = get_scenario(self.opts.scenario)
+        self.scenario = get_scenario(
+            scenario if scenario is not None else self.opts.scenario)
         self.executor = SimExecutor()
         self.callbacks: List[RoundCallback] = list(callbacks)
         self.consts = consts
@@ -350,15 +425,19 @@ class Engine:
 
     def execute_round(self, state: LoopState, staged: StagedRound):
         """Device phase of round ``staged.t``: the executor call, with the
-        eval pass handed in on eval-cadence rounds.  Updates
+        round's update corruptions, the configured robust aggregation and,
+        on eval-cadence rounds, the eval pass handed in.  Updates
         ``state.params`` and returns ``(mean_loss, acc)``; ``acc`` is None
         unless the round fused its eval."""
+        opts = self.opts
         eval_fn = state.eval_fn if self.should_eval(staged.t) else None
         state.params, mean_loss, acc = self.executor.run_round(
             state.params, staged.plan, staged.datasets,
-            loss_fn=state.loss_fn, eta=self.opts.eta, mu=self.mu_effective,
-            theta=self.opts.theta, agg=self.aggregation,
-            generator=state.generator, eval_fn=eval_fn)
+            loss_fn=state.loss_fn, eta=opts.eta, mu=self.mu_effective,
+            theta=opts.theta, agg=self.aggregation,
+            generator=state.generator, eval_fn=eval_fn,
+            corrupt=staged.events.corrupted,
+            robust_agg=opts.robust_agg, trim_frac=opts.trim_frac)
         return mean_loss, acc
 
     def finish_round(self, state: LoopState, staged: StagedRound,
@@ -367,7 +446,14 @@ class Engine:
         """Account the finished round: costs, eval (per the cadence),
         report, callbacks.  Advances ``state.t``."""
         plan = staged.plan
-        costs = network_costs(plan.to_w(), staged.net_t, staged.D_bar)
+        w = plan.to_w()
+        if staged.events.compute_scale:
+            # stragglers: the plan's idealized f_n vs the realized rate,
+            # charged through the Sec. II-E cost model (compute delay ~
+            # 1/f_n, compute energy ~ f_n^2)
+            w["f_n"] = w["f_n"] * torch.as_tensor(
+                staged.events.compute_scale, dtype=torch.float32)
+        costs = network_costs(w, staged.net_t, staged.D_bar)
         E = float(round_energy(costs, self.ow.xi3_sub))
         Dl = float(round_delay(costs))
         state.cum_E += E

@@ -24,7 +24,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("fedprox_accum", "nova_aggregate")
+KERNELS = ("fedprox_accum", "nova_aggregate", "robust_aggregate")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

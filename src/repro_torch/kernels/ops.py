@@ -20,9 +20,12 @@ from repro_torch.kernels import cuda
 from repro_torch.kernels import fedprox_update as _fp
 from repro_torch.kernels import nova_aggregate as _na
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import robust_aggregate as _ra
 
 LAUNCHES = cuda.LAUNCHES   # launches per kernel, counted by the wrappers
 reset_launches = cuda.reset_launches
+
+ROBUST_MODES = ("trimmed_mean", "median")
 
 
 def normalize_weights(weights: Sequence) -> torch.Tensor:
@@ -53,3 +56,35 @@ def nova_aggregate_plane(x, d_stack, weights, theta_eta):
     if _on_cpu(x):
         return _ref.nova_aggregate_ref(x, d_stack, w, theta_eta)
     return _na.nova_aggregate(x, d_stack, w, theta_eta)
+
+
+def trim_count(n_dpu: int, trim_frac: float) -> int:
+    """Per-side trim count for an n_dpu stack: floor(n * frac), clamped so
+    at least one value survives (2k < n)."""
+    if not 0.0 <= trim_frac < 0.5:
+        raise ValueError(f"trim_frac must be in [0, 0.5), got {trim_frac}")
+    return min(int(n_dpu * trim_frac), (n_dpu - 1) // 2)
+
+
+def robust_kwargs(n_dpu: int, mode: str, trim_frac: float) -> dict:
+    """The kernel-level ``k`` / ``median`` of a robust mode over an n_dpu
+    stack."""
+    if mode not in ROBUST_MODES:
+        raise ValueError(
+            f"unknown robust mode {mode!r}; known: {ROBUST_MODES}")
+    median = mode == "median"
+    return {"k": 0 if median else trim_count(n_dpu, trim_frac),
+            "median": median}
+
+
+def robust_aggregate_plane(x, d_stack, theta_eta, *,
+                           mode: str = "trimmed_mean",
+                           trim_frac: float = 0.1):
+    """Byzantine-robust eq. 11 on an (R, LANE) plane: x - theta_eta *
+    reduce(d_stack), with a coordinate-wise trimmed mean
+    (``mode="trimmed_mean"``) or median (``mode="median"``) over the DPU
+    axis.  Unweighted by design."""
+    kw = robust_kwargs(d_stack.shape[0], mode, trim_frac)
+    if _on_cpu(x):
+        return _ref.robust_aggregate_ref(x, d_stack, theta_eta, **kw)
+    return _ra.robust_aggregate(x, d_stack, theta_eta, **kw)

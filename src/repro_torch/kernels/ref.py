@@ -31,3 +31,28 @@ def nova_aggregate_ref(x, d_stack, weights, theta_eta):
     """eq. 11: x - theta_eta * sum_i w_i d_i, w already normalized."""
     agg = torch.einsum("n,n...->...", weights.float(), d_stack.float())
     return (x.float() - theta_eta * agg).to(x.dtype)
+
+
+def robust_reduce_ref(d_stack, *, k: int = 0, median: bool = False):
+    """Coordinate-wise robust location estimate over the DPU axis (dim 0),
+    in float32: the median (``median=True``; the mean of the two middle
+    values for even n) or the k-trimmed mean (drop the k smallest and k
+    largest per coordinate, which needs 0 <= 2k < n).  NaN sorts last, as
+    in ``torch.sort``.  Unweighted by design: dataset-size weights are the
+    lever a byzantine client inflates."""
+    d = torch.sort(d_stack.float(), dim=0).values
+    n = d.shape[0]
+    if median:
+        mid = n // 2
+        return d[mid] if n % 2 else 0.5 * (d[mid - 1] + d[mid])
+    if not 0 <= 2 * k < n:
+        raise ValueError(f"trim k={k} needs 0 <= 2k < n={n}")
+    return torch.mean(d[k:n - k], dim=0)
+
+
+def robust_aggregate_ref(x, d_stack, theta_eta, *, k: int = 0,
+                         median: bool = False):
+    """eq. 11 with the weighted sum replaced by a robust reduce:
+    x - theta_eta * robust_reduce(d_stack)."""
+    red = robust_reduce_ref(d_stack, k=k, median=median)
+    return (x.float() - theta_eta * red).to(x.dtype)

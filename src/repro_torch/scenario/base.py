@@ -22,6 +22,12 @@ class ScenarioEvents:
     left: Tuple[int, ...] = ()                        # UEs gone offline
     mesh_down: Tuple[Tuple[int, int], ...] = ()       # DC-DC links in outage
     active_ues: int = -1
+    # adversary channels (scenario/adversary.py): update corruptions the
+    # executor applies between local training and aggregation, and the
+    # per-UE realized compute-rate scaling finish_round charges through
+    # the cost model (empty tuples = clean round)
+    corrupted: Tuple[Tuple[int, str, float], ...] = ()  # (ue, mode, scale)
+    compute_scale: Tuple[float, ...] = ()               # (N,) f_n scaling
 
 
 @runtime_checkable

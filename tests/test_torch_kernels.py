@@ -127,7 +127,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tfp.fedprox_accum(x, x, x[0], x, w, w, 0.1, 0.01)
     with pytest.raises(ValueError, match="CUDA"):
         tna.nova_aggregate(x[0], x, w, 0.1)
-    assert ops.LAUNCHES == {"fedprox_accum": 0, "nova_aggregate": 0}
+    assert ops.LAUNCHES == {"fedprox_accum": 0, "nova_aggregate": 0,
+                            "robust_aggregate": 0}
 
 
 def test_cuda_request_without_a_card_raises():
