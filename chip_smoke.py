@@ -29,6 +29,19 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              ``robust_aggregate`` once, ``nova_aggregate`` never and
              ``fedprox_accum`` gamma times per DPU group.  Losses finite,
              final accuracies above chance.
+3b. mesh   — the mesh round at paper width in the same world:
+             ``Engine(..., executor=MeshExecutor())``, 3 rounds of
+             ``greedy_data`` and 2 of ``fednova``.  Counters are set to 0
+             just before and read just after; every round must launch
+             ``fedprox_accum`` gamma_max times (per-DPU anchor, all live
+             DPUs at once) and ``nova_aggregate_stacked`` once, and no
+             other kernel.  Losses finite, final accuracies above chance;
+             per round n, bucket, gamma_max, staged bytes, times and peak
+             memory; a profiled mesh round.
+3c. api    — the tree-level kernel ops on the paper classifier's tree,
+             f32 and bf16 leaves: ``ops.fedprox_update`` and
+             ``ops.nova_aggregate`` (absolute weights) launch one kernel
+             each and agree with the plain per-leaf result.
 4. kernels — each hand-written kernel against its plain PyTorch version on
              the same card tensors, at every shape the paths launched it
              with and at extra cases, with the tolerance stated below;
@@ -36,9 +49,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              L2 flushed before each) beside its plain version, its bound
              and a one-call PyTorch yardstick where one exists.  The
              kernels line reports the largest group the paths launched.
-5. check   — one fused round at paper width on the card against the same
-             staged round on the CPU (plain versions), to the stated
-             tolerance.
+5. check   — one fused round and one mesh round at paper width on the card
+             against the same staged round on the CPU (plain versions),
+             to the stated tolerance.
 
 Its last lines: the card's ``name, power.limit`` as nvidia-smi prints
 them, one JSON line with every kernel's numbers, and the result line
@@ -73,6 +86,11 @@ REPLACES = {
                        "src/repro/kernels/nova_aggregate.py:85"),
     "robust_aggregate": ("src/repro_torch/kernels/csrc/robust_aggregate.cu",
                          "src/repro/kernels/robust_aggregate.py:52"),
+    "nova_aggregate_stacked": (
+        "src/repro_torch/kernels/csrc/nova_aggregate.cu",
+        "src/repro/kernels/nova_aggregate.py:156"),
+    "fedprox_update": ("src/repro_torch/kernels/csrc/fedprox_update.cu",
+                       "src/repro/kernels/fedprox_update.py:95"),
 }
 
 # The threat path: (scenario, strategy, robust mode, rounds).
@@ -95,14 +113,15 @@ def card_rates(name: str):
 def ptxas_summary(log_text: str):
     """(function, "N registers; stack / spill line") per function in
     nvcc's ``-Xptxas=-v`` output, kernels named by their template
-    arguments (e.g. ``robust_aggregate_kernel<float, 32>``)."""
+    arguments (e.g. ``robust_aggregate_kernel<float, 32>``; a bool
+    argument shows as 0 or 1)."""
     import re
     out, fn = [], None
     for ln in log_text.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
             fn = m.group(1)
-            t = re.search(r"([a-z_]+_kernel)I(\w+?)(?:Li(\d+)E)?E", fn)
+            t = re.search(r"([a-z_]+_kernel)I(\w+?)(?:L[ib](\d+)E)?E", fn)
             if t:
                 dt = {"f": "float", "13__nv_bfloat16": "bf16"}.get(
                     t.group(2), t.group(2))
@@ -194,8 +213,9 @@ def _both(a, b) -> dict:
 
 def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
     """Every kernel against its plain version: at each shape the paths
-    launched it with (``path_shapes``: kernel -> {(G or n, R): launches};
-    f32, shared anchor, as the path runs) and at the extra cases below.
+    launched it with (``path_shapes``: kernel -> {(G or n, R): launches},
+    for fedprox_accum {(G, R, anchor form): launches}; f32, as the paths
+    run) and at the extra cases below.
     Every R = 176 case is timed.  Returns the per-case rows and, per
     kernel, the row of the largest group the path launched."""
     from repro_torch.kernels import fedprox_update as kfp
@@ -217,14 +237,14 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
     # where the plain version rounds each op (one bf16 ulp of the result
     # for bf16).
     path = path_shapes["fedprox_accum"]
-    cases = [(G, R, f32, "shared", n) for (G, R), n in sorted(path.items())]
+    cases = [(G, R, f32, anc, n) for (G, R, anc), n in sorted(path.items())]
     cases += [(G, 176, dt, anc, 0) for G in (5, 20, 25)
               for dt in (f32, torch.bfloat16)
               for anc in ("shared", "per_dpu")]
     cases += [(5, R, dt, anc, 0) for R in (24, 40)
               for dt in (f32, torch.bfloat16)
               for anc in ("shared", "per_dpu")]
-    G_main = max(G for G, _ in path)
+    G_main = max(G for G, _, _ in path)
     for G, R, dt, anc, on_path in cases:
         x, g, acc = (randn((G, R, LANE), dt) for _ in range(3))
         anchor = randn((R, LANE) if anc == "shared" else (G, R, LANE), dt)
@@ -306,6 +326,111 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
     return rows, main
 
 
+def stacked_checks(dev, timer, bw, f32_rate, path):
+    """``nova_aggregate_stacked`` against its plain version at every (n, R)
+    the mesh path launched it with (``path``: {(n, R): launches}, f32,
+    rows of x that differ), and at n in {1, 5, 64} for R = 176 and n = 5
+    for the edge rows 24 and 40, f32 and bf16.  Tolerance, as for
+    ``nova_aggregate``: two f32 ulps of the largest |x| plus theta_eta * n
+    ulps of the largest |d|.  Each case also says whether row j equals
+    ``nova_aggregate`` (the one-plane kernel) on x[j] bit for bit; those
+    comparison launches come after the counted paths.  Every R = 176 case
+    is timed, beside the yardstick ``addmm(x, M, d)`` with M = -theta_eta
+    * 1 w^T built before the timing."""
+    from repro_torch.kernels import nova_aggregate as kna
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plane import LANE
+
+    gen = torch.Generator(device=dev).manual_seed(2468)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(n, R, f32, c) for (n, R), c in sorted(path.items())]
+    cases += [(n, 176, dt, 0) for n in (1, 5, 64) for dt in (f32, bf16)]
+    cases += [(5, R, dt, 0) for R in (24, 40) for dt in (f32, bf16)]
+    n_main = max(n for n, _ in path)
+    rows, main = [], None
+    for n, R, dt, on_path in cases:
+        x = torch.randn((n, R, LANE), generator=gen, device=dev).to(dt)
+        d = torch.randn((n, R, LANE), generator=gen, device=dev).to(dt)
+        w = torch.rand(n, generator=gen, device=dev) + 0.1
+        w = w / w.sum()
+        theta_eta = 0.1
+        k = kna.nova_aggregate_stacked(x, d, w, theta_eta)
+        r = ref.nova_aggregate_ref(x, d, w, theta_eta)
+        one = torch.stack([kna.nova_aggregate(x[j], d, w, theta_eta)
+                           for j in range(n)])
+        torch.cuda.synchronize()
+        atol = 2 * _spacing(x) + theta_eta * n * _spacing(d)
+        nbytes = x.element_size() * R * LANE * 3 * n
+        flops = 4 * n * R * LANE
+        row = {"kernel": "nova_aggregate_stacked", "G": n, "R": R,
+               "dtype": str(dt).replace("torch.", ""), "anchor": "-",
+               "path_launches": on_path, "bytes": nbytes,
+               "rows_equal_nova_aggregate": bool(torch.equal(k, one)),
+               **within(k, r, atol)}
+        if R == 176:
+            M = (-theta_eta * torch.outer(torch.ones(n, device=dev), w)
+                 ).to(dt)
+            row["ms"] = timer(lambda: kna.nova_aggregate_stacked(
+                x, d, w, theta_eta))
+            row["plain_ms"] = timer(lambda: ref.nova_aggregate_ref(
+                x, d, w, theta_eta))
+            row["library_ms"] = timer(lambda: torch.addmm(
+                x.view(n, -1), M, d.view(n, -1)))
+            row["bound_ms"] = max(nbytes / bw, flops / f32_rate) * 1e3
+            row["bound_by"] = "bytes" if nbytes / bw >= flops / f32_rate \
+                else "operations"
+        if on_path and n == n_main:
+            main = row
+        rows.append(row)
+        log(f"  {_fmt(row)}  rows == nova_aggregate: "
+            f"{row['rows_equal_nova_aggregate']}")
+    return rows, main
+
+
+def update_checks(dev, timer, bw, f32_rate, path):
+    """``fedprox_update`` against its plain version at R in {176, 24, 40},
+    f32 and bf16 (``path``: {(R, dtype): launches} of the api phase).
+    Tolerance: two f32 ulps of the largest operand (nvcc contracts the
+    multiply-adds into FMAs where the plain version rounds each op), one
+    bf16 ulp of the result for bf16.  R = 176 is timed; no single PyTorch
+    call computes the update, so there is no yardstick."""
+    from repro_torch.kernels import fedprox_update as kfp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plane import LANE
+
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    rows, main = [], None
+    for R in (176, 24, 40):
+        for dt in (torch.float32, torch.bfloat16):
+            x, g, a = (torch.randn((R, LANE), generator=gen,
+                                   device=dev).to(dt) for _ in range(3))
+            eta, mu = 0.1, 0.01
+            k = kfp.fedprox_update(x, g, a, eta, mu)
+            r = ref.fedprox_update_ref(x, g, a, eta, mu)
+            torch.cuda.synchronize()
+            atol = 2 * max(_spacing(x), _spacing(g), _spacing(a))
+            nbytes = x.element_size() * R * LANE * 4
+            flops = 5 * R * LANE
+            row = {"kernel": "fedprox_update", "G": 1, "R": R,
+                   "dtype": str(dt).replace("torch.", ""), "anchor": "-",
+                   "path_launches": path.get((R, str(dt)), 0),
+                   "bytes": nbytes, **within(k, r, atol)}
+            if R == 176:
+                row["ms"] = timer(lambda: kfp.fedprox_update(x, g, a, eta,
+                                                             mu))
+                row["plain_ms"] = timer(lambda: ref.fedprox_update_ref(
+                    x, g, a, eta, mu))
+                row["library_ms"] = None
+                row["bound_ms"] = max(nbytes / bw, flops / f32_rate) * 1e3
+                row["bound_by"] = "bytes" if nbytes / bw >= \
+                    flops / f32_rate else "operations"
+                if dt == torch.float32:
+                    main = row
+            rows.append(row)
+            log(f"  {_fmt(row)}")
+    return rows, main
+
+
 def network_pairs(nmax: int):
     """The compare-exchanges (i, j) of Batcher's odd-even merge sort of
     ``nmax`` values, in the order ``csrc/robust_sort.cuh`` runs them."""
@@ -356,16 +481,19 @@ def _within_nonfinite(got, want, atol) -> dict:
 def robust_checks(dev, timer, bw, f32_rate, path_shapes):
     """``robust_aggregate`` against its plain version at every
     (n, R, mode, k, form) the threat path launched it with, and at the
-    extra cases: n in {1, 2, 3, 5, 20, 25, 32, 33, 64}, the median and
-    the trimmed mean at k in {0, trim_count(n, 0.2), (n-1)//2}, R in {24,
-    40, 176}, f32 and bf16; a tie-heavy stack, NaN and +-inf entries, and
-    the robust-FedAvg form x = 0, theta_eta = -1.  Tolerance: the median
+    extra cases: n in {1, 2, 3, 5, 20, 25, 32, 33, 64} (the register
+    network) and {65, 100, 128, 257, 1000} (the rank selection), the
+    median and the trimmed mean at k in {0, trim_count(n, 0.2),
+    (n-1)//2}, R in {24, 40, 176}, f32 and bf16, and n = 2000 at R = 8
+    (keys read through L1/L2); a tie-heavy stack, NaN and +-inf entries,
+    and the robust-FedAvg form x = 0, theta_eta = -1.  Tolerance: the median
     is bitwise equal (the same sorted values, one add and a halving for
     even n, and an unfused multiply and subtract in both); the trimmed
     mean within two f32 ulps of the largest |x| plus |theta_eta| * 2m
-    ulps of the largest |d| (m = n - 2k values summed, in sorted order in
-    the kernel and in torch's order in the plain version, which on the
-    card also multiplies by 1/m where the kernel divides).  bf16: one
+    ulps of the largest |d| (m = n - 2k values summed, in sorted order
+    by the network and in DPU order by the rank selection, and in torch's
+    order in the plain version, which on the card also multiplies by 1/m
+    where the kernel divides).  bf16: one
     bf16 ulp of the result or that bound."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import robust_aggregate as kra
@@ -462,6 +590,43 @@ def robust_checks(dev, timer, bw, f32_rate, path_shapes):
                     extra += 1
                     if not row["ok"]:
                         log(f"  {_fmt(row)}")
+    # above 64 DPUs the kernel ranks instead of sorting: the same checks,
+    # and n = 2000 at R = 8, whose keys outgrow shared memory (the path
+    # that reads them through L1/L2)
+    big = len(rows)
+    for n, Rs in ((65, (24, 40, 176)), (100, (24, 40, 176)),
+                  (128, (24, 40, 176)), (257, (24, 40, 176)),
+                  (1000, (24, 40, 176)), (2000, (8,))):
+        kt = ops.trim_count(n, 0.2)
+        modes = [("median", 0)] + [("trimmed_mean", k) for k in
+                                   sorted({0, kt, (n - 1) // 2})]
+        for mode, k in modes:
+            for R in Rs:
+                for dt in (f32, bf16):
+                    timed = R == 176 and dt == f32 and (
+                        mode == "median" or k == kt)
+                    row = case(n, R, dt, mode, k, "eq11", 0, timed=timed)
+                    extra += 1
+                    if timed or not row["ok"]:
+                        log(f"  {_fmt(row)}")
+        if n in (65, 257, 1000, 2000):
+            for dt in (f32, bf16):
+                for mode, k in (("median", 0), ("trimmed_mean", kt)):
+                    for special, form in (("ties", "eq11"),
+                                          ("nonfinite", "eq11"),
+                                          (None, "fedavg"),
+                                          ("ties", "fedavg")):
+                        row = case(n, 8 if n == 2000 else 40, dt, mode, k,
+                                   form, 0, special=special)
+                        extra += 1
+                        if not row["ok"]:
+                            log(f"  {_fmt(row)}")
+    ranked = rows[big:]
+    exact = all(r["max_abs_err"] == 0 for r in ranked
+                if r["mode"] == "median" and r["dtype"] == "float32")
+    log(f"  robust_aggregate, n > 64 (rank selection): {len(ranked)} cases, "
+        f"{sum(1 for r in ranked if not r['ok'])} outside tolerance; f32 "
+        f"medians bitwise: {exact}")
     worst = max(r["worst"] for r in rows if r["mode"] == "trimmed_mean")
     bitwise = all(r["max_abs_err"] == 0 for r in rows
                   if r["mode"] == "median" and r["dtype"] == "float32")
@@ -558,7 +723,7 @@ def drive_path(dev, world):
             live = live_dpus(staged.datasets)
             groups = dpu_groups(staged.plan, live)
             for (gamma, _m, _bucket), idxs in groups.items():
-                shapes["fedprox_accum"][(len(idxs), R)] += gamma
+                shapes["fedprox_accum"][(len(idxs), R, "shared")] += gamma
             if eng.aggregation != "fedavg":
                 shapes["nova_aggregate"][(len(live), R)] += 1
             mean_loss, acc = eng.execute_round(state, staged)
@@ -661,10 +826,11 @@ def drive_threat_path(dev, world):
             n = len(live)
             k = ops.robust_kwargs(n, mode, TRIM_FRAC)["k"]
             form = "fedavg" if eng.aggregation == "fedavg" else "eq11"
-            want = {"fedprox_accum": sum(g for (g, _m, _b) in groups),
-                    "nova_aggregate": 0, "robust_aggregate": 1}
+            want = dict.fromkeys(ops.LAUNCHES, 0)
+            want.update(fedprox_accum=sum(g for (g, _m, _b) in groups),
+                        robust_aggregate=1)
             for (gamma, _m, _bucket), idxs in groups.items():
-                shapes["fedprox_accum"][(len(idxs), R)] += gamma
+                shapes["fedprox_accum"][(len(idxs), R, "shared")] += gamma
             shapes["robust_aggregate"][(n, R, mode, k, form)] += 1
             mean_loss, acc = eng.execute_round(state, staged)
             torch.cuda.synchronize()
@@ -721,6 +887,245 @@ def drive_threat_path(dev, world):
             raise AssertionError(f"{scenario}/{strategy}/{mode}: final "
                                  f"accuracy {acc} is not above chance")
     return launches, shapes, records, engines
+
+
+# ------------------------------------------------------- phase 3b: mesh --
+
+MESH_RUNS = [("greedy_data", 3), ("fednova", 2)]
+
+
+def drive_mesh_path(dev, world):
+    """``MESH_RUNS`` through ``Engine(executor=MeshExecutor())`` on the
+    card, counting launches per round.  Returns the launch counts, the
+    shapes (fedprox_accum {(n, R, "per_dpu"): launches},
+    nova_aggregate_stacked {(n, R): launches}), the per-round records and
+    the engines."""
+    from repro_torch.core.api import EngineOptions
+    from repro_torch.core.engine import Engine, MeshExecutor, mesh_layout
+    from repro_torch.data.synthetic import make_online_ues
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.plane import as_plane
+    from repro_torch.models.classifier import (classifier_accuracy,
+                                               classifier_loss)
+    from repro_torch.solver.objective import ObjectiveWeights
+
+    net, ((trx, try_), (tex, tey)), p0, consts = world
+    R = as_plane(p0).data.shape[0]
+    ex = torch.from_numpy(tex[:1000]).to(dev)
+    ey = torch.from_numpy(tey[:1000]).to(dev)
+
+    def eval_fn(p):
+        return classifier_accuracy(p, ex, ey)
+
+    engines = []
+    for strategy, rounds in MESH_RUNS:
+        ues = make_online_ues(trx, try_, num_ue=20, mean_arrivals=2000.0,
+                              std_arrivals=200.0, seed=0)
+        eng = Engine(net, strategy, consts=consts,
+                     ow=ObjectiveWeights(xi1=1.0, xi2=1e-2, xi3=2.0,
+                                         T=rounds),
+                     opts=EngineOptions(rounds=rounds, eta=0.1, seed=0),
+                     executor=MeshExecutor(), device=dev)
+        state = eng.init_loop(ues, init_params=p0, loss_fn=classifier_loss,
+                              eval_fn=eval_fn)
+        engines.append((strategy, eng, state, ues))
+    torch.cuda.synchronize()
+
+    shapes = {"fedprox_accum": Counter(), "nova_aggregate_stacked": Counter()}
+    records = []
+    ops.reset_launches()                       # counts to 0: the path
+    for strategy, eng, state, ues in engines:
+        while state.t < eng.opts.rounds:
+            before = dict(ops.LAUNCHES)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            staged = eng.begin_round(state, ues)
+            t1 = time.perf_counter()
+            lay = mesh_layout(staged.plan, staged.datasets)
+            n, gmax = len(lay.dpus), lay.gamma_max
+            first = staged.datasets[lay.dpus[0]]
+            staged_bytes = sum(
+                n * lay.bucket * np.asarray(a).itemsize
+                * int(np.prod(np.asarray(a).shape[1:])) for a in
+                first.values())
+            want = dict.fromkeys(before, 0)
+            want.update(fedprox_accum=gmax, nova_aggregate_stacked=1)
+            shapes["fedprox_accum"][(n, R, "per_dpu")] += gmax
+            shapes["nova_aggregate_stacked"][(n, R)] += 1
+            mean_loss, acc = eng.execute_round(state, staged)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rep = eng.finish_round(state, staged, mean_loss, acc)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            got = {name: ops.LAUNCHES[name] - before[name]
+                   for name in before}
+            if got != want:
+                raise AssertionError(f"mesh {strategy} round {rep.round}: "
+                                     f"launches {got} != {want}")
+            rec = {"strategy": strategy, "round": rep.round, "n": n,
+                   "bucket": lay.bucket, "gamma_max": gmax,
+                   "gammas": [int(g) for g in lay.gammas],
+                   "sizes": lay.sizes, "staged_bytes": staged_bytes,
+                   "wall_s": t3 - t0, "host_plan_s": t1 - t0,
+                   "device_round_s": t2 - t1, "account_s": t3 - t2,
+                   "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                   "loss": rep.loss, "acc": rep.acc,
+                   "aggregator": rep.aggregator, "energy_J": rep.energy,
+                   "delay_s": rep.delay, "dc_points": rep.dc_points,
+                   "launches": got}
+            records.append(rec)
+            log(f"  mesh {strategy:<11} round {rep.round}: n={n} bucket="
+                f"{lay.bucket} gamma_max={gmax} staged "
+                f"{staged_bytes / 1e6:.1f} MB  wall {rec['wall_s']:.3f} s "
+                f"(plan {rec['host_plan_s']:.3f}, device round "
+                f"{rec['device_round_s']:.3f}, account "
+                f"{rec['account_s']:.3f})  peak "
+                f"{rec['peak_device_bytes'] / 2**20:.1f} MiB  loss "
+                f"{rep.loss:.4f}  acc {rep.acc:.3f}  aggregator "
+                f"DC{rep.aggregator}  energy {rep.energy:.2f} J  delay "
+                f"{rep.delay:.3f} s  largest D_i {max(lay.sizes)}")
+    launches = dict(ops.LAUNCHES)              # read just after
+    log(f"  launches {launches}")
+    for name, c in shapes.items():
+        log(f"  {name} launch shapes: launches: {dict(c)}")
+    for name in shapes:
+        if launches[name] != sum(shapes[name].values()) or \
+                launches[name] == 0:
+            raise AssertionError(f"kernel {name}: {launches[name]} "
+                                 "launches on the mesh path")
+    if not all(np.isfinite(r["loss"]) for r in records):
+        raise AssertionError("a mesh round's loss is not finite")
+    for strategy, _, state, _ in engines:
+        acc = state.reports[-1].acc
+        if not acc > 0.1:
+            raise AssertionError(f"mesh {strategy}: final accuracy {acc} "
+                                 "is not above chance (0.1)")
+    return launches, shapes, records, engines
+
+
+# -------------------------------------------------------- phase 3c: api --
+
+def drive_api_path(dev, world):
+    """The tree-level ops on the paper classifier's tree, f32 and bf16
+    leaves: ``ops.fedprox_update`` (eta 0.1, mu 0.01) and
+    ``ops.nova_aggregate`` (5 d trees, absolute weights 600..1000,
+    theta_eta 0.2), each one launch, against the plain per-leaf result.
+    Tolerance: two f32 ulps of the largest operand for fedprox_update and
+    two of the largest |x| plus theta_eta * n of the largest |d| for
+    nova_aggregate (the kernels' FMAs); bf16 leaves: one bf16 ulp of the
+    result or that bound.  Returns the launch counts, the launch shapes
+    (fedprox_update {(R, dtype of the plane): launches}, nova_aggregate
+    {(n, R): launches}) and the checks."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.plane import as_plane
+
+    _, _, p0, _ = world
+    R = as_plane(p0).data.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(77)
+    sizes = [600.0, 700.0, 800.0, 900.0, 1000.0]
+    w = ops.normalize_weights(sizes).to(dev)
+    checks = []
+    shapes = {"fedprox_update": Counter(), "nova_aggregate": Counter()}
+    ops.reset_launches()                       # counts to 0: the path
+    for dt in (torch.float32, torch.bfloat16):
+        def tree():
+            return {k: torch.randn(v.shape, generator=gen,
+                                   device=dev).to(dt) for k, v in p0.items()}
+        params, grads, anchor = ({k: v.to(dt) for k, v in p0.items()},
+                                 tree(), tree())
+        d_list = [tree() for _ in sizes]
+        calls = [
+            ("fedprox_update",
+             lambda: ops.fedprox_update(params, grads, anchor, 0.1, 0.01),
+             lambda k: ref.fedprox_update_ref(params[k], grads[k], anchor[k],
+                                              0.1, 0.01),
+             lambda k: 2 * max(_spacing(params[k]), _spacing(grads[k]),
+                               _spacing(anchor[k]))),
+            ("nova_aggregate",
+             lambda: ops.nova_aggregate(params, d_list, sizes, 0.2),
+             lambda k: ref.nova_aggregate_ref(
+                 params[k], torch.stack([d[k] for d in d_list]), w, 0.2),
+             lambda k: 2 * _spacing(params[k]) + 0.2 * len(sizes) * max(
+                 _spacing(d[k]) for d in d_list))]
+        for name, call, plain, atol in calls:
+            before = dict(ops.LAUNCHES)
+            got = call()
+            torch.cuda.synchronize()
+            delta = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            want = dict.fromkeys(before, 0)
+            want[name] = 1
+            if delta != want:
+                raise AssertionError(f"tree-level {name} ({dt}): launches "
+                                     f"{delta} != {want}")
+            res = None
+            for k in sorted(params):
+                c = within(got[k], plain(k), atol(k))
+                res = c if res is None else _both(res, c)
+            res = {"op": name, "leaf_dtype": str(dt), **res}
+            if any(got[k].dtype != dt for k in params):
+                raise AssertionError(f"tree-level {name} changed a leaf's "
+                                     "dtype")
+            # the ops flatten onto the f32 master plane: f32 launches
+            shapes[name][(R, "torch.float32") if name == "fedprox_update"
+                         else (len(sizes), R)] += 1
+            checks.append(res)
+            log(f"  tree-level {name:<15} {str(dt):<15} one launch; max abs "
+                f"err {res['max_abs_err']:.3e} (worst err/tol "
+                f"{res['worst']:.2f}) {'ok' if res['ok'] else 'MISMATCH'}")
+    launches = dict(ops.LAUNCHES)              # read just after
+    bad = [c for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"tree-level ops disagree: {bad}")
+    return launches, shapes, checks
+
+
+def mesh_reference_check(dev, engines):
+    """One more ``greedy_data`` mesh round (after the counted path),
+    staged once on the CPU: the step on the card (kernels) against the
+    same step on the CPU (plain versions), as staged (every gamma_i = 2)
+    and with the gammas set to 1, 2, 3, 1, ... (gamma_max 3, so the
+    per-DPU ``active`` mask and a_k differ between DPUs).  Tolerance: rtol
+    1e-4, atol 1e-5 on the new replica stack and rtol 1e-4 on the loss,
+    as phase 5's fused round (cuBLAS's and the CPU BLAS's summation
+    orders over the SGD steps, and the kernels' FMAs).  Returns the
+    largest error."""
+    from repro_torch.core.round_step import CEFLHyper, build_cefl_round_step
+    from repro_torch.kernels.plane import as_plane
+    from repro_torch.models.classifier import classifier_loss
+
+    strategy, eng, state, ues = engines[0]
+    staged = eng.begin_round(state, ues)
+    ex = eng.executor
+    mr = ex.stage(staged.plan, staged.datasets, agg=eng.aggregation,
+                  theta=eng.opts.theta, device=torch.device("cpu"))
+    n = len(mr.layout.dpus)
+    plane = as_plane(state.params)
+    mixed = dict(mr.meta, gamma=torch.arange(n, dtype=torch.int32) % 3 + 1)
+    worst = 0.0
+    for label, meta in (("as staged", mr.meta), ("gammas 1-3", mixed)):
+        step = build_cefl_round_step(classifier_loss, CEFLHyper(
+            eta=eng.opts.eta, mu=eng.mu_effective, theta=1.0,
+            gamma_max=int(meta["gamma"].max())))
+        outs = []
+        for where in (torch.device("cpu"), dev):
+            p = plane.with_data(plane.data.to(where))
+            stack = p.with_data(p.broadcast(n).data.contiguous())
+            new, metrics = step(stack, {k: v.to(where)
+                                        for k, v in mr.batch.items()},
+                                {k: v.to(where) for k, v in meta.items()})
+            outs.append((new.data.cpu(), float(metrics["loss"])))
+        (cn, cl), (gn, gl) = outs
+        err = float((gn - cn).abs().max())
+        torch.testing.assert_close(gn, cn, rtol=1e-4, atol=1e-5)
+        if abs(gl - cl) > 1e-4 * abs(cl):
+            raise AssertionError(f"mesh round loss {gl} (card) vs {cl} "
+                                 "(CPU)")
+        log(f"  mesh round ({strategy}, n={n}, bucket={mr.layout.bucket}, "
+            f"{label}) card vs CPU: replica stack max abs err {err:.3e}, "
+            f"loss {gl:.6f} vs {cl:.6f}")
+        worst = max(worst, err)
+    return worst
 
 
 def staging_and_profile(dev, engines):
@@ -891,33 +1296,52 @@ def main() -> int:
     t_profile = profile_round(f"{scenario} + {strategy} {mode}", eng,
                               state, ues)
 
+    log("phase 3b: the mesh path at paper width (Engine(executor="
+        "MeshExecutor()): greedy_data x3, fednova x2)")
+    m_launches, m_shapes, m_records, m_engines = drive_mesh_path(dev, world)
+    m_peak = max(r["peak_device_bytes"] for r in m_records)
+    log(f"  peak device memory {m_peak / 2**20:.1f} MiB")
+    strategy, eng, state, ues = m_engines[0]
+    m_profile = profile_round(f"mesh {strategy}", eng, state, ues)
+
+    log("phase 3c: the tree-level kernel ops on the paper classifier's "
+        "tree (f32, bf16 leaves)")
+    a_launches, a_shapes, a_checks = drive_api_path(dev, world)
+
     log(f"phase 4: kernels vs plain versions at the paths' shapes and extra "
         f"cases ({smi})")
     timer = Timer(dev)
-    # fedprox_accum at every group size either path launched it with
+    # each kernel at every shape any path launched it with
     checked = {"fedprox_accum": shapes["fedprox_accum"]
-               + t_shapes["fedprox_accum"],
-               "nova_aggregate": shapes["nova_aggregate"]}
+               + t_shapes["fedprox_accum"] + m_shapes["fedprox_accum"],
+               "nova_aggregate": shapes["nova_aggregate"]
+               + a_shapes["nova_aggregate"]}
     rows, main_rows = kernel_checks(dev, timer, bw, f32_rate, checked)
     r_rows, main_rows["robust_aggregate"] = robust_checks(
         dev, timer, bw, f32_rate, t_shapes["robust_aggregate"])
-    rows += r_rows
+    s_rows, main_rows["nova_aggregate_stacked"] = stacked_checks(
+        dev, timer, bw, f32_rate, m_shapes["nova_aggregate_stacked"])
+    u_rows, main_rows["fedprox_update"] = update_checks(
+        dev, timer, bw, f32_rate, a_shapes["fedprox_update"])
+    rows += r_rows + s_rows + u_rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel case(s) disagree with the "
                              f"plain version: {bad}")
     del timer
 
-    log("phase 5: one fused round, card vs CPU")
+    log("phase 5: one fused round and one mesh round, card vs CPU")
     round_err = reference_check(dev, world)
+    mesh_err = mesh_reference_check(dev, m_engines)
 
     kernels = []
-    for name in ("fedprox_accum", "nova_aggregate", "robust_aggregate"):
+    for name in REPLACES:
         r = main_rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": REPLACES[name][0],
             "replaces": REPLACES[name][1],
-            "launches": launches[name] + t_launches[name],
+            "launches": sum(c[name] for c in (launches, t_launches,
+                                              m_launches, a_launches)),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -927,13 +1351,18 @@ def main() -> int:
         "card": smi, "kind": kind, "torch": torch.__version__,
         "cuda": torch.version.cuda, "kernel_rows": rows,
         "rounds": records, "peak_device_bytes": peak,
-        "path_launch_shapes": {k: [[G, R, n] for (G, R), n in c.items()]
+        "path_launch_shapes": {k: [list(key) + [n] for key, n in c.items()]
                                for k, c in shapes.items()},
         "threat_rounds": t_records, "threat_peak_device_bytes": t_peak,
         "threat_launches": t_launches, "threat_profile": t_profile,
         "threat_launch_shapes": {k: [list(key) + [n] for key, n in c.items()]
                                  for k, c in t_shapes.items()},
         "round_check_max_abs_err": round_err, "staging_profile": extra,
+        "mesh_rounds": m_records, "mesh_launches": m_launches,
+        "mesh_launch_shapes": {k: [list(key) + [n] for key, n in c.items()]
+                               for k, c in m_shapes.items()},
+        "mesh_profile": m_profile, "mesh_round_check_max_abs_err": mesh_err,
+        "api_launches": a_launches, "api_checks": a_checks,
         "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,5 +1,5 @@
 """The CE-FL orchestration engine.  Counterpart of ``repro.core.engine``
-(the simulation executor and the round loop).
+(the simulation and mesh executors and the round loop).
 
 Each global round t (paper Secs. II+IV-VI):
   1. the :class:`~repro_torch.scenario.base.Scenario` evolves the world
@@ -9,8 +9,10 @@ Each global round t (paper Secs. II+IV-VI):
      w^t (offloading rho, compute settings f/z/gamma/m, floating
      aggregator I_s),
   3. data offloading is realized (UE -> BS -> DC partitions),
-  4. every DPU runs FedProx local training (eqs. 5-10) through
-     :class:`SimExecutor`,
+  4. every DPU runs FedProx local training (eqs. 5-10) through the
+     executor: :class:`SimExecutor` (per DPU group, mini-batches drawn)
+     or :class:`MeshExecutor` (one step over every live DPU, leading-slice
+     mini-batches),
   5. the round's update corruptions are applied, then the accumulated
      gradients are aggregated at the floating aggregation DC (eq. 11),
      or FedNova / FedAvg for the baselines, or by the byzantine-robust
@@ -48,8 +50,10 @@ from repro_torch.core import strategies as _strategies  # noqa: F401  (registers
 from repro_torch.core.api import (DecisionContext, EngineOptions,
                                   RoundCallback, RoundPlan, RoundReport,
                                   RunResult, get_strategy, weighted_mean)
+from repro_torch.core.round_step import CEFLHyper, build_cefl_round_step
 from repro_torch.device import require_device
-from repro_torch.kernels.plane import as_plane, as_tree
+from repro_torch.kernels.plane import (as_plane, as_tree,
+                                      tree_from_paths, tree_paths)
 from repro_torch.network.costs import network_costs, round_delay, \
     round_energy
 from repro_torch.scenario.base import get_scenario
@@ -297,6 +301,164 @@ class SimExecutor:
         return new_params, mean_loss, None
 
 
+@dataclasses.dataclass
+class MeshLayout:
+    """How :class:`MeshExecutor` packs a round's live DPUs: their positions
+    in the round's DPU list, dataset sizes D_i, the power-of-two batch
+    bucket every dataset is zero-padded to, and their local iterations."""
+    dpus: List[int]
+    sizes: List[int]
+    bucket: int
+    gammas: np.ndarray
+
+    @property
+    def gamma_max(self) -> int:
+        return int(self.gammas.max())
+
+
+def mesh_layout(plan: RoundPlan, datasets) -> Optional[MeshLayout]:
+    """The mesh packing of a round (None when no DPU holds data)."""
+    live = live_dpus(datasets)
+    if not live:
+        return None
+    gammas, _ = _plan_settings(plan)
+    sizes = [len(d["y"]) for _, d in live]
+    return MeshLayout(dpus=[i for i, _ in live], sizes=sizes,
+                      bucket=fedprox._bucket(max(sizes)),
+                      gammas=np.array([gammas[i] for i, _ in live]))
+
+
+@dataclasses.dataclass
+class MeshRound:
+    """A round packed for the mesh step: its layout, the ``(n, 1, bucket,
+    ...)`` batch and the ``meta`` of ``core.round_step``, on one device,
+    and the theta applied outside the step."""
+    layout: MeshLayout
+    batch: dict
+    meta: dict
+    theta: float
+
+
+@dataclasses.dataclass
+class MeshExecutor:
+    """Mesh backend: the paper loop through the SPMD round step
+    (``core.round_step``).
+
+    The live DPUs are packed on a leading DPU axis on the device (datasets
+    zero-padded to a shared power-of-two bucket, the CE-FL mini-batch
+    ratio applied as a leading-example mask), so one ``round_step`` call
+    trains and aggregates every DPU: ``gamma_max`` ``fedprox_accum``
+    launches and one ``nova_aggregate_stacked`` launch per round on the
+    plane.  Differences from :class:`SimExecutor`: mini-batches are the
+    deterministic leading slice, not random draws (the same at m = 1), so
+    nothing is drawn; the reported loss is the unweighted DPU mean of the
+    last local iteration; FedAvg model averaging, update corruption and
+    robust aggregation have no form here.
+
+    Steps are cached per (loss_fn, DPU count, bucket, gamma_max, mu, eta);
+    theta is applied outside the step (``x + theta * (new - x)``), so a
+    per-round tau_eff needs no new step.  ``use_plane`` (default) runs the
+    plane form; False runs the tree form (plain torch, no kernel).
+    """
+    use_plane: bool = True
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def _get_step(self, loss_fn, n_dpu, bucket, gamma_max, mu, eta):
+        key = (loss_fn, n_dpu, bucket, gamma_max, mu, eta)
+        if key not in self._cache:
+            self._cache[key] = build_cefl_round_step(loss_fn, CEFLHyper(
+                eta=eta, mu=mu, theta=1.0, gamma_max=gamma_max, n_micro=1))
+        return self._cache[key]
+
+    def stage(self, plan: RoundPlan, datasets, *, agg: str,
+              theta: Optional[float], device) -> Optional["MeshRound"]:
+        """Pack the round's live DPUs on ``device``: the zero-padded batch,
+        the step's ``meta`` and the round's theta (tau_eff under
+        ``fednova`` or when ``theta`` is None).  None when no DPU holds
+        data."""
+        layout = mesh_layout(plan, datasets)
+        if layout is None:
+            return None
+        _, ms = _plan_settings(plan)
+        bucket = layout.bucket
+        # one zero-padded (n, n_micro=1, bucket, ...) stack per field
+        batch = {}
+        for name, first in datasets[layout.dpus[0]].items():
+            first = torch.as_tensor(first)
+            stack = torch.zeros((len(layout.dpus), 1, bucket)
+                                + tuple(first.shape[1:]), dtype=first.dtype,
+                                device=device)
+            for j, (i, D) in enumerate(zip(layout.dpus, layout.sizes)):
+                stack[j, 0, :D].copy_(torch.as_tensor(datasets[i][name]))
+            batch[name] = stack
+        # real examples sit first, so folding the pad into the mini-batch
+        # ratio makes the leading-example mask select ceil(m_i * D_i) of
+        # them and none of the padding
+        m_eff = np.array([ms[i] * D / bucket
+                          for i, D in zip(layout.dpus, layout.sizes)])
+        w = np.asarray(layout.sizes, float)
+        w = w / w.sum()
+        if agg == "fednova" or theta is None:
+            theta_val = float(np.sum(w * layout.gammas))      # tau_eff
+        else:
+            theta_val = float(theta)
+        meta = {"gamma": torch.as_tensor(layout.gammas, dtype=torch.int32,
+                                         device=device),
+                "m_frac": torch.as_tensor(m_eff, dtype=torch.float32,
+                                          device=device),
+                "weight": torch.as_tensor(w, dtype=torch.float32,
+                                          device=device)}
+        return MeshRound(layout=layout, batch=batch, meta=meta,
+                         theta=theta_val)
+
+    def run_round(self, params, plan: RoundPlan, datasets, *, loss_fn,
+                  eta: float, mu: float, theta: Optional[float], agg: str,
+                  generator: Optional[torch.Generator] = None, eval_fn=None,
+                  corrupt=(), robust_agg: str = "none",
+                  trim_frac: float = 0.1):
+        """Returns ``(new_params, mean_loss, None)``: the caller
+        evaluates.  ``generator`` and ``eval_fn`` are not used (nothing
+        is drawn, nothing fused)."""
+        del generator, eval_fn, trim_frac
+        if agg == "fedavg":
+            raise NotImplementedError(
+                "MeshExecutor aggregates accumulated gradients (eq. 11); "
+                "FedAvg model averaging needs SimExecutor")
+        if corrupt or robust_agg != "none":
+            raise NotImplementedError(
+                "update corruption / robust aggregation run between local "
+                "training and aggregation, which the mesh round step does "
+                "not expose; use SimExecutor")
+        plane = as_plane(params)
+        staged = self.stage(plan, datasets, agg=agg, theta=theta,
+                            device=plane.data.device)
+        if staged is None:
+            return params, float("nan"), None
+        layout, batch, meta = staged.layout, staged.batch, staged.meta
+        n, theta_val = len(layout.dpus), staged.theta
+        step = self._get_step(loss_fn, n, layout.bucket, layout.gamma_max,
+                              mu, eta)
+        if self.use_plane:
+            stack = plane.broadcast(n)
+            new_stack, metrics = step(
+                stack.with_data(stack.data.contiguous()), batch, meta)
+            # theta = 1 inside the step; the global update is rescaled here
+            new_params = plane.with_data(
+                plane.data + theta_val * (new_stack.data[0] - plane.data))
+            return new_params, float(metrics["loss"]), None
+        pairs = tree_paths(as_tree(params))
+        stacked = tree_from_paths(
+            [path for path, _ in pairs],
+            [x.unsqueeze(0).expand((n,) + tuple(x.shape)).contiguous()
+             for _, x in pairs])
+        new_stack, metrics = step(stacked, batch, meta)
+        new_params = tree_from_paths(
+            [path for path, _ in pairs],
+            [x + theta_val * (x1[0] - x) for (_, x), (_, x1)
+             in zip(pairs, tree_paths(new_stack))])
+        return new_params, float(metrics["loss"]), None
+
+
 # ----------------------------------------------------------- engine -----
 
 @dataclasses.dataclass
@@ -349,11 +511,14 @@ class Engine:
 
     def __init__(self, net, strategy=None, *, consts, ow,
                  opts: Optional[EngineOptions] = None, scenario=None,
-                 callbacks: Sequence[RoundCallback] = (), device="cuda"):
+                 executor=None, callbacks: Sequence[RoundCallback] = (),
+                 device="cuda"):
         """``scenario``: a name from the scenario registry ("static",
         "byzantine:0.2", ...) or a Scenario instance; None takes
-        ``opts.scenario``.  ``callbacks`` get each round's report; one
-        returning True stops the run after that round."""
+        ``opts.scenario``.  ``executor``: :class:`SimExecutor` (the
+        default) or :class:`MeshExecutor`.  ``callbacks`` get each
+        round's report; one returning True stops the run after that
+        round."""
         self.device = require_device(device)
         self.net = net
         self.opts = opts or EngineOptions()
@@ -361,7 +526,7 @@ class Engine:
             strategy if strategy is not None else self.opts.strategy)
         self.scenario = get_scenario(
             scenario if scenario is not None else self.opts.scenario)
-        self.executor = SimExecutor()
+        self.executor = executor if executor is not None else SimExecutor()
         self.callbacks: List[RoundCallback] = list(callbacks)
         self.consts = consts
         self.ow = ow

@@ -24,7 +24,13 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("fedprox_accum", "nova_aggregate", "robust_aggregate")
+# the sources of csrc/, one library each
+SOURCES = ("fedprox_accum", "nova_aggregate", "robust_aggregate",
+           "fedprox_update")
+# the kernels as the wrappers launch them: nova_aggregate.cu serves both
+# nova_aggregate (one plane) and nova_aggregate_stacked (a replica stack)
+KERNELS = ("fedprox_accum", "nova_aggregate", "robust_aggregate",
+           "nova_aggregate_stacked", "fedprox_update")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -53,7 +59,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Sequence[str] = KERNELS) -> Dict[str, Tuple[float, str]]:
+def build(names: Sequence[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
     """Compile every library of ``names`` that is not built yet, one
     ``nvcc`` per source, all started together.  Returns, per name, the
     seconds its build took (0.0 when already built) and nvcc's output

@@ -1,12 +1,20 @@
-"""CUDA wrapper of the ``fedprox_accum`` kernel (``csrc/fedprox_accum.cu``),
-the port of ``repro.kernels.fedprox_update.fedprox_accum_2d``:
+"""CUDA wrappers of the FedProx kernels, the ports of
+``repro.kernels.fedprox_update``:
 
-    x_new   = x - active * eta * (g + mu * (x - anchor))
-    acc_new = acc + active * coef * g
+* ``fedprox_accum`` (``csrc/fedprox_accum.cu``, from ``fedprox_accum_2d``):
 
-Its plain version, same signature, is :func:`fedprox_accum_ref` (defined
-in ``ref.py``, re-exported here).  Dispatch between the two, by the
-tensors' device, lives in ``ops.py``.
+      x_new   = x - active * eta * (g + mu * (x - anchor))
+      acc_new = acc + active * coef * g
+
+* ``fedprox_update`` (``csrc/fedprox_update.cu``, from
+  ``fedprox_update_2d``):
+
+      x_new = x - eta * (g + mu * (x - anchor))
+
+Their plain versions, same signatures, are :func:`fedprox_accum_ref` and
+:func:`fedprox_update_ref` (defined in ``ref.py``, re-exported here).
+Dispatch between kernel and plain version, by the tensors' device, lives
+in ``ops.py``.
 """
 from __future__ import annotations
 
@@ -16,7 +24,8 @@ import torch
 
 from repro_torch.kernels import cuda
 from repro_torch.kernels.plane import LANE
-from repro_torch.kernels.ref import fedprox_accum_ref  # noqa: F401
+from repro_torch.kernels.ref import (fedprox_accum_ref,  # noqa: F401
+                                     fedprox_update_ref)
 
 _SYMBOL = {torch.float32: "fedprox_accum_f32",
            torch.bfloat16: "fedprox_accum_bf16"}
@@ -75,3 +84,38 @@ def fedprox_accum(x, g, anchor, acc, coef, active, eta, mu):
     cuda.check("fedprox_accum", err)
     cuda.LAUNCHES["fedprox_accum"] += 1
     return x_out, acc_out
+
+
+_UPDATE_SYMBOL = {torch.float32: "fedprox_update_f32",
+                  torch.bfloat16: "fedprox_update_bf16"}
+_UPDATE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_float,
+                                            ctypes.c_float, ctypes.c_void_p]
+
+
+def fedprox_update(x, g, anchor, eta, mu):
+    """Launch the kernel on CUDA tensors.  x, g, anchor: (R, 1024), one
+    dtype, f32 or bf16; eta, mu: Python numbers.  Returns x_new."""
+    if x.dtype not in _UPDATE_SYMBOL:
+        raise TypeError(f"fedprox_update takes float32 or bfloat16, "
+                        f"not {x.dtype}")
+    if x.dim() != 2 or x.shape[1] != LANE or x.shape[0] % 8:
+        raise ValueError(f"x must be (R, {LANE}) with R % 8 == 0, "
+                         f"got {tuple(x.shape)}")
+    for name, t in (("x", x), ("g", g), ("anchor", anchor)):
+        if tuple(t.shape) != tuple(x.shape):
+            raise ValueError(f"{name} must have x's shape {tuple(x.shape)}, "
+                             f"got {tuple(t.shape)}")
+        _check_plane(name, t, x.device, x.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"fedprox_update launches on CUDA tensors; x is on "
+                         f"{x.device} (CPU tensors take fedprox_update_ref)")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        fn = cuda.entry("fedprox_update", _UPDATE_SYMBOL[x.dtype],
+                        _UPDATE_ARGTYPES)
+        err = fn(x.data_ptr(), g.data_ptr(), anchor.data_ptr(),
+                 out.data_ptr(), x.numel(), float(eta), float(mu),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    cuda.check("fedprox_update", err)
+    cuda.LAUNCHES["fedprox_update"] += 1
+    return out

@@ -1,5 +1,6 @@
-"""Plane-level kernel ops and their dispatch (counterpart of
-``repro.kernels.ops``, plane level).
+"""Kernel ops and their dispatch (counterpart of ``repro.kernels.ops``):
+the plane level, which the round paths call, and the tree level, which
+flattens a dict tree onto a plane, launches one kernel and unflattens.
 
 Dispatch is decided by the tensors' device and nothing else: a CUDA tensor
 launches the hand-written kernel (or the wrapper raises), a CPU tensor
@@ -21,6 +22,7 @@ from repro_torch.kernels import fedprox_update as _fp
 from repro_torch.kernels import nova_aggregate as _na
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import robust_aggregate as _ra
+from repro_torch.kernels.plane import spec_of
 
 LAUNCHES = cuda.LAUNCHES   # launches per kernel, counted by the wrappers
 reset_launches = cuda.reset_launches
@@ -39,6 +41,13 @@ def _on_cpu(x: torch.Tensor) -> bool:
     return x.device.type == "cpu"
 
 
+def fedprox_plane(x, g, anchor, eta, mu):
+    """Fused x <- x - eta*(g + mu*(x - anchor)) on (R, LANE) planes."""
+    if _on_cpu(x):
+        return _ref.fedprox_update_ref(x, g, anchor, eta, mu)
+    return _fp.fedprox_update(x, g, anchor, eta, mu)
+
+
 def fedprox_accum_plane(x, g, anchor, acc, coef, active, eta, mu):
     """Batched proximal step + eq.-10 accumulation on (G, R, LANE) planes
     (one launch per local iteration for a whole DPU group)."""
@@ -51,10 +60,14 @@ def fedprox_accum_plane(x, g, anchor, acc, coef, active, eta, mu):
 
 
 def nova_aggregate_plane(x, d_stack, weights, theta_eta):
-    """eq. 11 on an (R, LANE) plane.  ``weights`` must be normalized."""
+    """eq. 11 on planes.  ``weights`` must be normalized.  ``x`` may be
+    (R, LANE) or (n_dpu, R, LANE) (stacked per-DPU replicas, every row
+    updated alike)."""
     w = torch.as_tensor(weights, dtype=torch.float32, device=x.device)
     if _on_cpu(x):
         return _ref.nova_aggregate_ref(x, d_stack, w, theta_eta)
+    if x.dim() == 3:
+        return _na.nova_aggregate_stacked(x, d_stack, w, theta_eta)
     return _na.nova_aggregate(x, d_stack, w, theta_eta)
 
 
@@ -88,3 +101,26 @@ def robust_aggregate_plane(x, d_stack, theta_eta, *,
     if _on_cpu(x):
         return _ref.robust_aggregate_ref(x, d_stack, theta_eta, **kw)
     return _ra.robust_aggregate(x, d_stack, theta_eta, **kw)
+
+
+# ------------------------------------------------------- tree level -----
+
+def fedprox_update(params, grads, anchor, eta, mu):
+    """Fused x <- x - eta*(g + mu*(x - anchor)) over a whole dict tree:
+    one launch on the f32 plane, leaves cast back to their dtypes."""
+    spec = spec_of(params)
+    out = fedprox_plane(spec.flatten(params), spec.flatten(grads),
+                        spec.flatten(anchor), eta, mu)
+    return spec.unflatten(out)
+
+
+def nova_aggregate(x, d_list: Sequence, weights, theta_eta):
+    """x <- x - theta_eta * sum_i w_i d_i over dict trees (eq. 11).
+
+    ``weights``: absolute dataset sizes D_i, normalized here (the single
+    normalization point of this path)."""
+    spec = spec_of(x)
+    d_stack = torch.stack([spec.flatten(d) for d in d_list], dim=0)
+    out = nova_aggregate_plane(spec.flatten(x), d_stack,
+                               normalize_weights(weights), theta_eta)
+    return spec.unflatten(out)

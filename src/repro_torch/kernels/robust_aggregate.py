@@ -25,8 +25,8 @@ _SYMBOL = {torch.float32: "robust_aggregate_f32",
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_void_p]
-NMAX = (8, 16, 32, 64)   # the kernel's compile-time sort sizes
-MAX_DPUS = NMAX[-1]      # each thread sorts its n values in registers
+NMAX = (8, 16, 32, 64)   # the register network's compile-time sizes; a
+                         # larger stack takes the kernel's rank selection
 
 
 def sorted_range(n: int, k: int, median: bool):
@@ -43,9 +43,9 @@ def sorted_range(n: int, k: int, median: bool):
 def robust_aggregate(x, d_stack, theta_eta, *, k: int = 0,
                      median: bool = False):
     """Launch the kernel on CUDA tensors.  x: (R, 1024), f32 or bf16;
-    d_stack: (n, R, 1024) of x's dtype, 1 <= n <= 64; ``k`` (trimmed
-    mean) and ``median`` as in :func:`robust_aggregate_ref`; theta_eta: a
-    Python number.  Returns x_new."""
+    d_stack: (n, R, 1024) of x's dtype, n >= 1; ``k`` (trimmed mean) and
+    ``median`` as in :func:`robust_aggregate_ref`; theta_eta: a Python
+    number.  Returns x_new."""
     if x.dtype not in _SYMBOL:
         raise TypeError(f"robust_aggregate takes float32 or bfloat16, "
                         f"not {x.dtype}")
@@ -57,9 +57,8 @@ def robust_aggregate(x, d_stack, theta_eta, *, k: int = 0,
         raise ValueError(f"d_stack must be (n, {R}, {LANE}), "
                          f"got {tuple(d_stack.shape)}")
     n = d_stack.shape[0]
-    if not 1 <= n <= MAX_DPUS:
-        raise ValueError(f"robust_aggregate sorts 1..{MAX_DPUS} DPUs per "
-                         f"coordinate in registers, got n={n}")
+    if n < 1:
+        raise ValueError("d_stack holds no DPU")
     lo, hi = sorted_range(n, k, median)
     _check_plane("x", x, x.device, x.dtype)
     _check_plane("d_stack", d_stack, x.device, x.dtype)

@@ -2,8 +2,10 @@
 
 The port's plain versions (``repro_torch.kernels.ref``, which the CPU
 dispatch of ``repro_torch.kernels.ops`` runs) are held against
-``fedprox_accum_2d`` / ``nova_aggregate_2d`` run through ``pallas_call``
-in interpret mode, on the same numpy inputs.  Tolerances: f32
+``fedprox_accum_2d`` / ``nova_aggregate_2d`` / ``fedprox_update_2d`` /
+``nova_aggregate_stacked_2d`` run through ``pallas_call`` in interpret
+mode, and the tree-level ops against ``repro.kernels.ops`` with
+``backend="cpu"``, on the same numpy inputs.  Tolerances: f32
 ``rtol=1e-6`` plus an absolute two ulps of the largest operand (XLA
 contracts the multiply-adds into FMAs and may order the sum differently,
 where torch on the CPU rounds every op; a result that cancels towards
@@ -23,8 +25,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro.kernels.fedprox_update import fedprox_accum_2d
-from repro.kernels.nova_aggregate import nova_aggregate_2d
+from repro.kernels import ops as jops
+from repro.kernels.fedprox_update import fedprox_accum_2d, fedprox_update_2d
+from repro.kernels.nova_aggregate import (nova_aggregate_2d,
+                                          nova_aggregate_stacked_2d)
 from repro_torch.kernels import fedprox_update as tfp
 from repro_torch.kernels import nova_aggregate as tna
 from repro_torch.kernels import ops, ref
@@ -107,6 +111,117 @@ def test_nova_aggregate_plain_matches_pallas(dtype, R, n):
     _assert_close(to, jo, dtype, tx, td)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("R", [8, 24, 40, 176])
+def test_fedprox_update_plain_matches_pallas(dtype, R):
+    rng = np.random.RandomState(R * 7 + 1)
+    jx, tx = _pair(rng, (R, LANE), dtype)
+    jg, tg = _pair(rng, (R, LANE), dtype)
+    ja, ta = _pair(rng, (R, LANE), dtype)
+    eta, mu = 0.05, 0.01
+    jo = fedprox_update_2d(jx, jg, ja, eta, mu, interpret=True)
+    before = dict(ops.LAUNCHES)
+    to = ops.fedprox_plane(tx, tg, ta, eta, mu)
+    assert ops.LAUNCHES == before
+    assert to.dtype == tx.dtype
+    _assert_close(to, jo, dtype, tx, tg, ta)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("R", [8, 24, 40])
+@pytest.mark.parametrize("n", [1, 3, 5])
+def test_nova_aggregate_stacked_plain_matches_pallas(dtype, R, n):
+    """The plain version on a 3-D x (rows that differ) against the
+    stacked Pallas kernel: every row gets the same update."""
+    rng = np.random.RandomState(R * 13 + n)
+    jx, tx = _pair(rng, (n, R, LANE), dtype)
+    jd, td = _pair(rng, (n, R, LANE), dtype)
+    w = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    w = w / w.sum()
+    theta_eta = 0.07
+    jo = nova_aggregate_stacked_2d(jx, jd, jnp.asarray(w), theta_eta,
+                                   interpret=True)
+    before = dict(ops.LAUNCHES)
+    to = ops.nova_aggregate_plane(tx, td, torch.from_numpy(w), theta_eta)
+    assert ops.LAUNCHES == before
+    assert to.shape == tx.shape and to.dtype == tx.dtype
+    _assert_close(to, jo, dtype, tx, td)
+    one = ops.nova_aggregate_plane(tx[n - 1], td, torch.from_numpy(w),
+                                   theta_eta)
+    assert torch.equal(to[n - 1], one)
+
+
+def _classifier_tree(rng, dtype):
+    """A tree shaped like the 8x8x1 -> 16 -> 10 classifier's params."""
+    shapes = {"w0": (64, 16), "b0": (16,), "w1": (16, 10), "b1": (10,)}
+    pairs = {k: _pair(rng, s, dtype) for k, s in shapes.items()}
+    return ({k: j for k, (j, _) in pairs.items()},
+            {k: t for k, (_, t) in pairs.items()})
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tree_ops_match_jax_cpu_ops(dtype):
+    """Tree-level ``fedprox_update`` and ``nova_aggregate`` (absolute
+    weights, normalized once inside) against ``repro.kernels.ops`` with
+    ``backend="cpu"``, leaf by leaf, leaf dtypes kept."""
+    rng = np.random.RandomState(5)
+    (jp, tp), (jg, tg), (ja, ta) = (_classifier_tree(rng, dtype)
+                                    for _ in range(3))
+    before = dict(ops.LAUNCHES)
+    jo = jops.fedprox_update(jp, jg, ja, 0.05, 0.01, backend="cpu")
+    to = ops.fedprox_update(tp, tg, ta, 0.05, 0.01)
+    assert set(to) == set(jo)
+    for k in jo:
+        assert to[k].dtype == tp[k].dtype
+        _assert_close(to[k], jo[k], dtype, tp[k], tg[k], ta[k])
+    ds = [_classifier_tree(rng, dtype) for _ in range(3)]
+    sizes = [120.0, 300.0, 45.0]
+    jn = jops.nova_aggregate(jp, [j for j, _ in ds], sizes, 0.2,
+                             backend="cpu")
+    tn = ops.nova_aggregate(tp, [t for _, t in ds], sizes, 0.2)
+    for k in jn:
+        assert tn[k].dtype == tp[k].dtype
+        _assert_close(tn[k], jn[k], dtype, tp[k], *(t[k] for _, t in ds))
+    assert ops.LAUNCHES == before
+
+
+def test_new_wrappers_refuse_what_their_kernels_do_not_take():
+    """fedprox_update and nova_aggregate_stacked check dtype, shape,
+    contiguity and the weights before the device, and launch nothing."""
+    x = torch.zeros((8, LANE))
+    s = torch.zeros((3, 8, LANE))
+    w = torch.ones(3) / 3
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfp.fedprox_update(x.half(), x.half(), x.half(), 0.1, 0.01)
+    with pytest.raises(TypeError, match="dtype"):
+        tfp.fedprox_update(x, x.to(torch.bfloat16), x, 0.1, 0.01)
+    with pytest.raises(ValueError, match="x must be"):
+        tfp.fedprox_update(torch.zeros((12, LANE)), x, x, 0.1, 0.01)
+    with pytest.raises(ValueError, match="anchor must have"):
+        tfp.fedprox_update(x, x, torch.zeros((16, LANE)), 0.1, 0.01)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfp.fedprox_update(x, torch.zeros((LANE, 8)).t(), x, 0.1, 0.01)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfp.fedprox_update(x, x, x, 0.1, 0.01)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tna.nova_aggregate_stacked(s.half(), s.half(), w, 0.1)
+    with pytest.raises(ValueError, match="x must be"):
+        tna.nova_aggregate_stacked(x, s, w, 0.1)
+    with pytest.raises(ValueError, match="d_stack must have"):
+        tna.nova_aggregate_stacked(s, s[:2], w, 0.1)
+    with pytest.raises(ValueError, match="weights must be"):
+        tna.nova_aggregate_stacked(s, s, w[:2], 0.1)
+    with pytest.raises(TypeError, match="dtype"):
+        tna.nova_aggregate_stacked(s, s, w.double(), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tna.nova_aggregate_stacked(
+            s, torch.zeros((8, 3, LANE)).transpose(0, 1), w, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tna.nova_aggregate_stacked(s, s, w, 0.1)
+    assert ops.LAUNCHES["fedprox_update"] == 0
+    assert ops.LAUNCHES["nova_aggregate_stacked"] == 0
+
+
 def test_plain_versions_are_what_cpu_dispatch_runs():
     rng = np.random.RandomState(0)
     x, g, a, c = (torch.from_numpy(rng.normal(size=(2, 8, LANE))
@@ -127,8 +242,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tfp.fedprox_accum(x, x, x[0], x, w, w, 0.1, 0.01)
     with pytest.raises(ValueError, match="CUDA"):
         tna.nova_aggregate(x[0], x, w, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfp.fedprox_update(x[0], x[0], x[0], 0.1, 0.01)
+    with pytest.raises(ValueError, match="CUDA"):
+        tna.nova_aggregate_stacked(x, x, w, 0.1)
     assert ops.LAUNCHES == {"fedprox_accum": 0, "nova_aggregate": 0,
-                            "robust_aggregate": 0}
+                            "robust_aggregate": 0,
+                            "nova_aggregate_stacked": 0,
+                            "fedprox_update": 0}
 
 
 def test_cuda_request_without_a_card_raises():
