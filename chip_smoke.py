@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of CE-FL (``src/repro_torch``) on one NVIDIA
-card and check it.
+card and check it: the CE-FL rounds and the LM serving path.
 
     python3 chip_smoke.py            # from the repo root, on a machine with
                                      # one CUDA card, nvcc and nvidia-smi
@@ -42,6 +42,16 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              f32 and bf16 leaves: ``ops.fedprox_update`` and
              ``ops.nova_aggregate`` (absolute weights) launch one kernel
              each and agree with the plain per-leaf result.
+6. serve   — (runs after 3c) the LM serving path at full width and
+             depth: starcoder2-15b in bf16, random weights made on the card
+             from a seed, through ``repro_torch.serve.serve``: 8 requests
+             of 512-token prompts, then 2 of 4096 (a full rolling window),
+             32 greedy tokens each, cache 4096.  Counters are set to 0
+             just before each run and read just after; each must launch
+             ``swa_decode_attention`` 40 x 31 = 1,240 times and no other
+             kernel.  Logits finite, tokens in the vocab; prefill seconds,
+             decode ms per step, tokens/s, peak memory, and a profiled
+             decode step.  The weights are freed after it.
 4. kernels — each hand-written kernel against its plain PyTorch version on
              the same card tensors, at every shape the paths launched it
              with and at extra cases, with the tolerance stated below;
@@ -51,7 +61,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              kernels line reports the largest group the paths launched.
 5. check   — one fused round and one mesh round at paper width on the card
              against the same staged round on the CPU (plain versions),
-             to the stated tolerance.
+             to the stated tolerance; starcoder2-15b at full width with 2
+             layers in f32, prefill and 8 decode steps, card against CPU.
 
 Its last lines: the card's ``name, power.limit`` as nvidia-smi prints
 them, one JSON line with every kernel's numbers, and the result line
@@ -60,6 +71,7 @@ the profile of one round) goes to ``chiprun_out/chip_smoke/``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -91,6 +103,9 @@ REPLACES = {
         "src/repro/kernels/nova_aggregate.py:156"),
     "fedprox_update": ("src/repro_torch/kernels/csrc/fedprox_update.cu",
                        "src/repro/kernels/fedprox_update.py:95"),
+    "swa_decode_attention": (
+        "src/repro_torch/kernels/csrc/swa_decode_attention.cu",
+        "src/repro/kernels/swa_decode_attention.py:55"),
 }
 
 # The threat path: (scenario, strategy, robust mode, rounds).
@@ -1244,6 +1259,365 @@ def reference_check(dev, world):
     return err
 
 
+# ------------------------------------------------------ phase 6: serve --
+
+SERVE_ARCH = "starcoder2-15b"
+# (label, requests, prompt tokens): the serving path, then a rolling run
+# whose prompts fill the window, so every step wraps the slot and attends
+# over a full cache
+SERVE_RUNS = [("8 x 512", 8, 512), ("rolling 2 x 4096", 2, 4096)]
+SERVE_GEN, SERVE_CACHE = 32, 4096
+
+
+def drive_serve_path(dev, cfg=None, runs=SERVE_RUNS, gen=SERVE_GEN,
+                     cache_len=SERVE_CACHE):
+    """``repro_torch.serve.serve`` at full width and depth (starcoder2-15b,
+    bf16, random weights from a seed on the card): each of ``runs`` greedy-
+    generates ``gen`` tokens, with the launch counters set to 0 just
+    before and read just after.  Each run must launch
+    ``swa_decode_attention`` num_layers x (gen - 1) times and no other
+    kernel; logits finite, tokens in the vocab.  Returns the summed
+    launches, the kernel's launch shapes ((B, S, cache_len) -> launches),
+    the per-run records, a profiled decode step and the init record."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.plane import tree_paths
+    from repro_torch.models import lm as L
+    from repro_torch.serve import serve
+
+    cfg = cfg or get_config(SERVE_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = L.init_lm_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg)
+    torch.cuda.synchronize()
+    leaves = [t for _, t in tree_paths(params)]
+    init = {"init_s": time.perf_counter() - t0,
+            "weight_bytes": sum(t.numel() * t.element_size() for t in leaves),
+            "params": sum(t.numel() for t in leaves)}
+    log(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{init['params'] / 1e9:.3f} G params, "
+        f"{init['weight_bytes'] / 1e9:.2f} GB of {cfg.dtype} weights made on "
+        f"the card in {init['init_s']:.2f} s")
+    total = Counter()
+    shapes = Counter()
+    records = []
+    window = cfg.sliding_window or cache_len
+    for label, B, P in runs:
+        prompts = np.random.RandomState(1).randint(0, cfg.vocab_size, (B, P))
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                   # counts to 0: the path
+        t0 = time.perf_counter()
+        tokens, stats = serve(cfg, prompts, gen=gen, cache_len=cache_len,
+                              params=params, device=dev)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)          # read just after
+        want = dict.fromkeys(launches, 0)
+        want["swa_decode_attention"] = cfg.num_layers * (gen - 1)
+        if launches != want:
+            raise AssertionError(f"serve {label}: launches {launches} != "
+                                 f"{want}")
+        S = min(window, cache_len)
+        for pos in range(P, P + gen - 1):
+            shapes[(B, S, min(pos + 1, S))] += cfg.num_layers
+        if not stats["logits_finite"]:
+            raise AssertionError(f"serve {label}: logits not finite")
+        lo, hi = int(tokens.min()), int(tokens.max())
+        if tuple(tokens.shape) != (B, gen) or lo < 0 or \
+                hi >= cfg.vocab_size:
+            raise AssertionError(f"serve {label}: tokens "
+                                 f"{tuple(tokens.shape)} in [{lo}, {hi}]")
+        steps = stats["decode_step_s"]
+        med = statistics.median(steps[1:])
+        rec = {"run": label, "batch": B, "prompt": P, "gen": gen,
+               "cache_len": cache_len, "wall_s": wall,
+               "prefill_s": stats["prefill_s"],
+               "prefill_tokens_per_s": B * P / stats["prefill_s"],
+               "decode_first_ms": steps[0] * 1e3,
+               "decode_ms_median": med * 1e3,
+               "decode_ms_min": min(steps) * 1e3,
+               "decode_ms_max": max(steps) * 1e3,
+               "tokens_per_s": B / med,
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launches, "first_tokens": tokens[0, :8].tolist()}
+        records.append(rec)
+        total.update(launches)
+        log(f"  serve {label} (prompt {P}, {gen} tokens, cache {cache_len}):"
+            f" prefill {rec['prefill_s']:.3f} s "
+            f"({rec['prefill_tokens_per_s']:.0f} tokens/s), decode "
+            f"{rec['decode_ms_median']:.2f} ms/step median after the first "
+            f"(first {rec['decode_first_ms']:.2f}, min "
+            f"{rec['decode_ms_min']:.2f}, max {rec['decode_ms_max']:.2f})"
+            f", {rec['tokens_per_s']:.1f} tokens/s batched, peak "
+            f"{rec['peak_device_bytes'] / 2**30:.2f} GiB; "
+            f"swa_decode_attention x{launches['swa_decode_attention']}")
+    prof = profile_decode_step(params, cfg, dev, runs[0][1], runs[0][2],
+                               cache_len)
+    del params
+    torch.cuda.empty_cache()
+    return dict(total), shapes, records, prof, init
+
+
+def profile_decode_step(params, cfg, dev, B, P, cache_len):
+    """One decode step of a fresh B x P prefill (after the counted runs;
+    one step to warm up) under ``torch.profiler``: wall time, device busy
+    time and the operations that took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm as L
+
+    prompts = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (B, P))).to(dev)
+    logits, cache = L.prefill(params, cfg, prompts, cache_len)
+    tok = torch.argmax(logits, dim=-1)
+    logits, cache = L.lm_decode_step(params, cfg, tok, cache)
+    tok = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = L.lm_decode_step(params, cfg, tok, cache)
+        tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    averages = prof.key_averages()
+    events = [e for e in averages
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    busy_us = sum(device_us(e) for e in events)
+    top = sorted(events, key=lambda e: -device_us(e))[:12]
+    table = [{"name": e.key, "calls": e.count,
+              "device_ms": device_us(e) / 1e3} for e in top]
+    # the host side: launches issued and the ops with the most host time
+    host = [e for e in averages if e.device_type == DeviceType.CPU]
+    launches = sum(e.count for e in host if e.key in (
+        "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+        "cuLaunchKernelEx"))
+    host_top = [{"name": e.key, "calls": e.count,
+                 "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                for e in sorted(host, key=lambda e: -e.self_cpu_time_total)
+                [:12]]
+    log(f"  profiled decode step (B = {B}, cache_len {P + 2}): wall "
+        f"{wall * 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
+        f"({100 * busy_us / 1e3 / (wall * 1e3):.1f} % of wall), "
+        f"{launches} kernel launches")
+    for r in table[:8]:
+        log(f"    {r['device_ms']:9.3f} ms  {r['calls']:4d}x  "
+            f"{r['name'][:70]}")
+    log("    host, self time:")
+    for r in host_top[:8]:
+        log(f"    {r['self_cpu_ms']:9.3f} ms  {r['calls']:4d}x  "
+            f"{r['name'][:70]}")
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e3 / (wall * 1e3), "top": table,
+            "kernel_launches": launches, "host_top": host_top}
+
+
+# swa_decode_attention cases beyond the path's: (B, Hq, Hkv, D, S,
+# cache_len, dtype); G = Hq / Hkv
+SWA_EXTRA = [
+    (8, 48, 4, 128, 4096, 4096, torch.bfloat16),    # full cache at B = 8
+    (8, 48, 4, 128, 4096, 4096, torch.float32),
+    (2, 48, 4, 128, 4096, 4096, torch.float32),
+    (8, 4, 4, 128, 4096, 2000, torch.bfloat16),     # G = 1
+    (8, 32, 4, 128, 4096, 2000, torch.bfloat16),    # G = 8
+    (8, 64, 4, 128, 4096, 2000, torch.bfloat16),    # G = 16
+    (4, 16, 4, 32, 1000, 777, torch.float32),       # D = 32, S = 1000
+    (4, 16, 4, 32, 1000, 777, torch.bfloat16),
+    (4, 24, 4, 64, 1000, 1000, torch.float32),      # D = 64, cache_len S
+    (4, 24, 4, 64, 1000, 1000, torch.bfloat16),
+    (2, 48, 4, 128, 1000, 1, torch.bfloat16),       # cache_len 1
+    (2, 48, 4, 128, 1000, 1, torch.float32),
+    (1, 48, 4, 128, 32768, 32768, torch.bfloat16),  # decode_32k's cache
+]
+
+
+def swa_checks(dev, timer, bw, f32_rate, path, Hq=48, Hkv=4, D=128):
+    """``swa_decode_attention`` against its plain version at the first and
+    last (B, S, cache_len) of each serve run (``path``: {(B, S,
+    cache_len): launches}; bf16, starcoder2's heads) and at
+    ``SWA_EXTRA``.
+    Tolerance: float32 within 8 f32 ulps of the largest |v| (the output
+    is a convex combination of v rows; the scores are summed in another
+    order, with FMAs, which moves each softmax weight by a few ulps
+    relative); bfloat16 within one bf16 ulp of the plain version's f32
+    result on the same inputs, or that f32 tolerance where it is larger
+    (the kernel's f32 result agrees to f32 rounding, then rounds once to
+    bf16; near zero the f32 difference outweighs a bf16 ulp).  Every
+    case is timed beside the plain version and, as the library yardstick,
+    one ``F.scaled_dot_product_attention(..., enable_gqa=True)`` with a
+    ``pos < cache_len`` mask over the same cache (strided views, no copy).
+    Returns the rows and the row of the main path's shape (the 8 x 512
+    run's first step)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_decode_attention as kswa
+
+    gen = torch.Generator(device=dev).manual_seed(9876)
+    keys = sorted(path)
+    firsts = {}
+    for B, S, cl in keys:
+        firsts.setdefault((B, S), []).append(cl)
+    cases = []
+    for (B, S), cls in sorted(firsts.items()):
+        for cl in sorted({min(cls), max(cls)}):
+            cases.append((B, Hq, Hkv, D, S, cl, torch.bfloat16,
+                          path[(B, S, cl)]))
+    cases += [c + (0,) for c in SWA_EXTRA]
+    # the main path's shape: the first step of the largest batch
+    main_key = min(path, key=lambda key: (-key[0], key[2]))
+    rows, main = [], None
+    for B, Hq_, Hkv_, D_, S, cl, dt, on_path in cases:
+        q = torch.randn((B, Hq_, D_), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, S, Hkv_, D_), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, S, Hkv_, D_), generator=gen, device=dev).to(dt)
+        got = kswa.swa_decode_attention(q, k, v, cl)
+        want = ref.swa_decode_attention_ref(q.float(), k.float(), v.float(),
+                                            cl)
+        torch.cuda.synchronize()
+        atol = 8 * _spacing(v)
+        check = (within(got, want, atol) if dt == torch.float32
+                 else _within_bf16_of_f32(got, want, atol))
+        es = q.element_size()
+        nbytes = es * (2 * B * cl * Hkv_ * D_ + 2 * B * Hq_ * D_)
+        flops = 4 * B * Hq_ * cl * D_
+        mask = (torch.arange(S, device=dev) < cl).view(1, 1, 1, S)
+        qs, ks, vs = (q.view(B, Hq_, 1, D_), k.transpose(1, 2),
+                      v.transpose(1, 2))
+        lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                             enable_gqa=True)
+        row = {"kernel": "swa_decode_attention", "G": Hq_ // Hkv_, "R": S,
+               "B": B, "Hq": Hq_, "Hkv": Hkv_, "D": D_, "S": S,
+               "cache_len": cl, "dtype": str(dt).replace("torch.", ""),
+               "anchor": f"B={B} D={D_} len={cl}",
+               "path_launches": on_path, "bytes": nbytes, **check,
+               "library_max_abs_err": float(
+                   (lib.view(B, Hq_, D_).float() - want).abs().max())}
+        row["ms"] = timer(lambda: kswa.swa_decode_attention(q, k, v, cl))
+        row["plain_ms"] = timer(lambda: ref.swa_decode_attention_ref(
+            q, k, v, cl))
+        row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True))
+        row["bound_ms"] = max(nbytes / bw, flops / f32_rate) * 1e3
+        row["bound_by"] = "bytes" if nbytes / bw >= flops / f32_rate \
+            else "operations"
+        if on_path and (B, S, cl) == main_key or (B, S, cl, dt) == (
+                8, 4096, 4096, torch.bfloat16):
+            row["launch_split_us"] = launch_split(
+                lambda: kswa.swa_decode_attention(q, k, v, cl))
+        if on_path and (B, S, cl) == main_key:
+            main = row
+        rows.append(row)
+        log(f"  {_fmt(row)}")
+        if "launch_split_us" in row:
+            log(f"    device time per launch: {row['launch_split_us']}")
+    return rows, main
+
+
+def launch_split(fn, iters=10) -> dict:
+    """Device microseconds per call of each kernel ``fn`` launches, from
+    ``torch.profiler`` over ``iters`` calls."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            m = re.search(r"(\w+_kernel)", e.key)
+            out[m.group(1) if m else e.key] = round(us / iters, 2)
+    return out
+
+
+def _within_bf16_of_f32(got, want_f32, atol) -> dict:
+    """A bf16 result within one bf16 ulp of an f32 reference (the larger
+    ulp of |got| and |want|) or ``atol``, whichever is larger, per
+    element: near zero a bf16 ulp is smaller than the f32 difference the
+    rounding starts from."""
+    g = got.float()
+    err = (g - want_f32).abs()
+    bound = torch.clamp(_bf16_ulp(torch.maximum(g.abs(), want_f32.abs())),
+                        min=atol)
+    ratio = torch.where(err == 0, torch.zeros_like(err), err / bound)
+    return {"max_abs_err": float(err.max()), "tol": float(bound.max()),
+            "tol_rule": "1 bf16 ulp of the f32 plain result, or f32 tol",
+            "worst": float(ratio.max()), "ok": bool(torch.all(err <= bound))}
+
+
+SERVE_CHECK = {"layers": 2, "batch": 2, "prompt": 64, "steps": 8,
+               "logits_atol": 5e-4}
+
+
+def serve_reference_check(dev, cfg=None, layers=SERVE_CHECK["layers"],
+                          batch=SERVE_CHECK["batch"],
+                          prompt=SERVE_CHECK["prompt"],
+                          steps=SERVE_CHECK["steps"],
+                          atol=SERVE_CHECK["logits_atol"]):
+    """starcoder2-15b at full width with ``layers`` layers, float32, TF32
+    off: the same weights (made on the CPU from a seed) and prompts on the
+    card (the kernel) and on the CPU (plain versions), prefill and
+    ``steps`` decode steps, each step fed the CPU's greedy token.
+    Tolerance on the logits: ``atol`` (5e-4 against logits of order 2:
+    products of depth up to 24,576 summed in cuBLAS's and the CPU BLAS's
+    orders through two layers, and the kernel's summation order).  The
+    card's greedy token must equal the CPU's wherever the CPU's top-2
+    logit margin exceeds 2 * atol.  Returns the largest logit error."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.plane import tree_map
+    from repro_torch.models import lm as L
+
+    cfg = cfg or dataclasses.replace(get_config(SERVE_ARCH),
+                                     num_layers=layers)
+    params = L.init_lm_params(torch.Generator().manual_seed(11), cfg,
+                              torch.float32)
+    gparams = tree_map(lambda t: t.to(dev), params)
+    prompts = torch.from_numpy(np.random.RandomState(12).randint(
+        0, cfg.vocab_size, (batch, prompt)))
+    worst, checked, agree = 0.0, 0, 0
+    cl, cc = L.prefill(params, cfg, prompts, SERVE_CACHE)
+    gl, gc = L.prefill(gparams, cfg, prompts.to(dev), SERVE_CACHE)
+    for step in range(steps + 1):
+        g = gl.cpu()
+        err = float((g - cl).abs().max())
+        worst = max(worst, err)
+        if err > atol:
+            raise AssertionError(f"serve check step {step}: logits differ "
+                                 f"by {err} > {atol}")
+        top2 = torch.topk(cl, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * atol
+        tok = torch.argmax(cl, dim=-1)
+        same = torch.argmax(g, dim=-1) == tok
+        if not bool(torch.all(same[sure])):
+            raise AssertionError(f"serve check step {step}: greedy tokens "
+                                 "differ where the margin is clear")
+        checked += int(sure.sum())
+        agree += int(same.sum())
+        if step < steps:
+            cl, cc = L.lm_decode_step(params, cfg, tok, cc)
+            gl, gc = L.lm_decode_step(gparams, cfg, tok.to(dev), gc)
+    log(f"  {cfg.name} x{cfg.num_layers} layers f32, B={batch}, prompt "
+        f"{prompt}, {steps} decode steps: card vs CPU logits max abs err "
+        f"{worst:.3e} (tol {atol:g}); greedy tokens equal {agree} of "
+        f"{batch * (steps + 1)} ({checked} with a clear margin)")
+    del gparams
+    torch.cuda.empty_cache()
+    return worst
+
 # ---------------------------------------------------------------- main --
 
 def main() -> int:
@@ -1308,6 +1682,12 @@ def main() -> int:
         "tree (f32, bf16 leaves)")
     a_launches, a_shapes, a_checks = drive_api_path(dev, world)
 
+    log("phase 6: serve starcoder2-15b at full width and depth (bf16, "
+        "random weights): 8 x 512-token prompts, then 2 x 4096 (rolling "
+        "window), 32 tokens each, cache 4096")
+    s_launches, s_shapes, s_records, s_profile, s_init = drive_serve_path(
+        dev)
+
     log(f"phase 4: kernels vs plain versions at the paths' shapes and extra "
         f"cases ({smi})")
     timer = Timer(dev)
@@ -1323,16 +1703,20 @@ def main() -> int:
         dev, timer, bw, f32_rate, m_shapes["nova_aggregate_stacked"])
     u_rows, main_rows["fedprox_update"] = update_checks(
         dev, timer, bw, f32_rate, a_shapes["fedprox_update"])
-    rows += r_rows + s_rows + u_rows
+    w_rows, main_rows["swa_decode_attention"] = swa_checks(
+        dev, timer, bw, f32_rate, s_shapes)
+    rows += r_rows + s_rows + u_rows + w_rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel case(s) disagree with the "
                              f"plain version: {bad}")
     del timer
 
-    log("phase 5: one fused round and one mesh round, card vs CPU")
+    log("phase 5: one fused round and one mesh round, card vs CPU; "
+        "starcoder2-15b at full width, 2 layers, f32, card vs CPU")
     round_err = reference_check(dev, world)
     mesh_err = mesh_reference_check(dev, m_engines)
+    serve_err = serve_reference_check(dev)
 
     kernels = []
     for name in REPLACES:
@@ -1340,8 +1724,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": REPLACES[name][0],
             "replaces": REPLACES[name][1],
-            "launches": sum(c[name] for c in (launches, t_launches,
-                                              m_launches, a_launches)),
+            "launches": sum(c.get(name, 0) for c in (
+                launches, t_launches, m_launches, a_launches, s_launches)),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1363,6 +1747,11 @@ def main() -> int:
                                for k, c in m_shapes.items()},
         "mesh_profile": m_profile, "mesh_round_check_max_abs_err": mesh_err,
         "api_launches": a_launches, "api_checks": a_checks,
+        "serve_init": s_init, "serve_runs": s_records,
+        "serve_launches": s_launches, "serve_decode_profile": s_profile,
+        "serve_launch_shapes": [list(key) + [n]
+                                for key, n in sorted(s_shapes.items())],
+        "serve_check_max_abs_err": serve_err,
         "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,0 +1,15 @@
+"""codeqwen1.5-7b [dense] — Qwen1.5 architecture [hf:Qwen/CodeQwen1.5-7B]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="codeqwen1.5-7b",
+    family="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,        # MHA per assignment (GQA kv=32)
+    d_ff=13440,
+    vocab_size=92416,
+    rope_theta=1_000_000.0,
+    source="hf:Qwen/CodeQwen1.5-7B",
+)

@@ -26,11 +26,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 # the sources of csrc/, one library each
 SOURCES = ("fedprox_accum", "nova_aggregate", "robust_aggregate",
-           "fedprox_update")
+           "fedprox_update", "swa_decode_attention")
 # the kernels as the wrappers launch them: nova_aggregate.cu serves both
 # nova_aggregate (one plane) and nova_aggregate_stacked (a replica stack)
 KERNELS = ("fedprox_accum", "nova_aggregate", "robust_aggregate",
-           "nova_aggregate_stacked", "fedprox_update")
+           "nova_aggregate_stacked", "fedprox_update", "swa_decode_attention")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -22,6 +22,7 @@ from repro_torch.kernels import fedprox_update as _fp
 from repro_torch.kernels import nova_aggregate as _na
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import robust_aggregate as _ra
+from repro_torch.kernels import swa_decode_attention as _swa
 from repro_torch.kernels.plane import spec_of
 
 LAUNCHES = cuda.LAUNCHES   # launches per kernel, counted by the wrappers
@@ -101,6 +102,14 @@ def robust_aggregate_plane(x, d_stack, theta_eta, *,
     if _on_cpu(x):
         return _ref.robust_aggregate_ref(x, d_stack, theta_eta, **kw)
     return _ra.robust_aggregate(x, d_stack, theta_eta, **kw)
+
+
+def swa_decode_attention(q, k_cache, v_cache, cache_len: int):
+    """Single-token GQA decode attention: q (B, Hq, D) over the positions
+    < ``cache_len`` (a Python int) of the (B, S, Hkv, D) caches."""
+    if _on_cpu(q):
+        return _ref.swa_decode_attention_ref(q, k_cache, v_cache, cache_len)
+    return _swa.swa_decode_attention(q, k_cache, v_cache, cache_len)
 
 
 # ------------------------------------------------------- tree level -----

@@ -3,6 +3,7 @@
 held against.  Math in float32, outputs cast back to the input dtypes."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -56,3 +57,19 @@ def robust_aggregate_ref(x, d_stack, theta_eta, *, k: int = 0,
     x - theta_eta * robust_reduce(d_stack)."""
     red = robust_reduce_ref(d_stack, k=k, median=median)
     return (x.float() - theta_eta * red).to(x.dtype)
+
+
+def swa_decode_attention_ref(q, k_cache, v_cache, cache_len):
+    """Single-token GQA decode attention over positions < cache_len of a
+    (B, S, Hkv, D) cache, in float32: q (B, Hq, D) -> (B, Hq, D) in q's
+    dtype, the G = Hq / Hkv query heads of each KV head side by side."""
+    B, Hq, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) / np.sqrt(D)
+    pos = torch.arange(S, device=q.device)
+    s = torch.where((pos < cache_len)[None, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return o.reshape(B, Hq, D).to(q.dtype)

@@ -249,7 +249,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert ops.LAUNCHES == {"fedprox_accum": 0, "nova_aggregate": 0,
                             "robust_aggregate": 0,
                             "nova_aggregate_stacked": 0,
-                            "fedprox_update": 0}
+                            "fedprox_update": 0,
+                            "swa_decode_attention": 0}
 
 
 def test_cuda_request_without_a_card_raises():
