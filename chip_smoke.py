@@ -57,8 +57,12 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              with and at extra cases, with the tolerance stated below;
              then each is timed with CUDA events (median of 30 launches,
              L2 flushed before each) beside its plain version, its bound
-             and a one-call PyTorch yardstick where one exists.  The
-             kernels line reports the largest group the paths launched.
+             and a one-call PyTorch yardstick where one exists;
+             ``robust_aggregate``'s network and radix select are timed
+             against each other at n = 33-100 (the crossover),
+             and ``swa_decode_attention`` must show one kernel per call.
+             The kernels line reports the largest group the paths
+             launched.
 5. check   — one fused round and one mesh round at paper width on the card
              against the same staged round on the CPU (plain versions),
              to the stated tolerance; starcoder2-15b at full width with 2
@@ -86,10 +90,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke"
 
-# The H100 SXM's published peaks (NVIDIA data sheet): memory rate in B/s
-# and float32 rate outside the tensor cores in FLOP/s, keyed on the name
-# torch reports.  Other cards raise until a run on them adds their entry.
-CARDS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
+# The H100 SXM's published peaks (NVIDIA data sheet): memory rate in B/s,
+# float32 rate outside the tensor cores and dense bf16 tensor-core rate in
+# FLOP/s, keyed on the name torch reports.  Other cards raise until a run
+# on them adds their entry.
+CARDS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12, 989e12)}
 
 REPLACES = {
     "fedprox_accum": ("src/repro_torch/kernels/csrc/fedprox_accum.cu",
@@ -470,12 +475,17 @@ def network_pairs(nmax: int):
     return out
 
 
-def robust_operations(n: int, m: int, R: int) -> int:
-    """Operations the robust reduce needs for n values per coordinate: two
-    (a min and a max) per compare-exchange of the network on n values
-    (the NMAX network without the exchanges that touch only padding,
-    which never move), m - 1 adds and one divide for the m averaged
-    values, a multiply and a subtract for the update."""
+def robust_operations(n: int, m: int, R: int, network_max: int = 64) -> int:
+    """Operations the robust reduce needs for n values per coordinate, m
+    of them averaged, plus a multiply and a subtract for the update.  Up
+    to ``network_max`` DPUs (the register network): two (a min and a max)
+    per compare-exchange of the network on n values (the NMAX network
+    without the exchanges that touch only padding, which never move), m -
+    1 adds and one divide.  Above (the radix select): one key per value
+    and one comparison per value against the boundaries, m - 1 adds and
+    one divide."""
+    if n > network_max:
+        return R * 1024 * (2 * n + m + 2)
     nmax = 1 << max(n - 1, 0).bit_length()
     ces = sum(1 for _, j in network_pairs(nmax) if j < n)
     return R * 1024 * (2 * ces + m + 2)
@@ -497,19 +507,21 @@ def robust_checks(dev, timer, bw, f32_rate, path_shapes):
     """``robust_aggregate`` against its plain version at every
     (n, R, mode, k, form) the threat path launched it with, and at the
     extra cases: n in {1, 2, 3, 5, 20, 25, 32, 33, 64} (the register
-    network) and {65, 100, 128, 257, 1000} (the rank selection), the
+    network) and {65, 100, 128, 257, 1000, 1001} (the radix select), the
     median and the trimmed mean at k in {0, trim_count(n, 0.2),
-    (n-1)//2}, R in {24, 40, 176}, f32 and bf16, and n = 2000 at R = 8
-    (keys read through L1/L2); a tie-heavy stack, NaN and +-inf entries,
-    and the robust-FedAvg form x = 0, theta_eta = -1.  Tolerance: the median
-    is bitwise equal (the same sorted values, one add and a halving for
-    even n, and an unfused multiply and subtract in both); the trimmed
-    mean within two f32 ulps of the largest |x| plus |theta_eta| * 2m
-    ulps of the largest |d| (m = n - 2k values summed, in sorted order
-    by the network and in DPU order by the rank selection, and in torch's
-    order in the plain version, which on the card also multiplies by 1/m
-    where the kernel divides).  bf16: one
-    bf16 ulp of the result or that bound."""
+    (n-1)//2}, R in {24, 40, 176} (1001: 176), f32 and bf16, n = 2000 at
+    R = 8, and n = 4000 at R = 8 (keys past shared memory, re-read from
+    device memory); a tie-heavy stack (timed at n = 1000), NaN and +-inf
+    entries, the robust-FedAvg form x = 0, theta_eta = -1, and at n = 65
+    and 1000 stacks of -0 and +0 with x = -0 (a zero result keeps the
+    sign of the stable order's zero, which must match).  Tolerance: the
+    median is bitwise equal (the same sorted values, one add and a halving for
+    even n, and an unfused multiply and subtract in both); the trimmed mean
+    within two f32 ulps of the largest |x| plus |theta_eta| * 2m ulps of the
+    largest |d| (m = n - 2k values summed, in sorted order by the network and
+    in DPU order by the radix select, and in torch's order in the plain
+    version, which on the card also multiplies by 1/m where the kernel
+    divides).  bf16: one bf16 ulp of the result or that bound."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import robust_aggregate as kra
     from repro_torch.kernels.plane import LANE
@@ -526,6 +538,14 @@ def robust_checks(dev, timer, bw, f32_rate, path_shapes):
             base = d[0].clone()
             for i in range(n):
                 d[i] = (base, -4 * base, torch.zeros_like(base))[i % 3]
+        elif special == "signed_zeros":
+            # four DPUs in five send -0 or +0 (a coin per element), the
+            # fifth a value: a zero median is the stable order's zero
+            for i in range(n):
+                if i % 5:
+                    d[i] = torch.where(torch.rand(
+                        (R, LANE), generator=gen, device=dev) < 0.5,
+                        -0.0, 0.0)
         elif special == "nonfinite":
             d[0, :, :256] = float("nan")
             d[1 % n, :, 128:384] = float("inf")
@@ -533,6 +553,9 @@ def robust_checks(dev, timer, bw, f32_rate, path_shapes):
         d = d.to(dt)
         if form == "fedavg":
             x, theta_eta = torch.zeros((R, LANE), dtype=dt, device=dev), -1.0
+        elif special == "signed_zeros":   # -0 - 0.2 * (+-0) shows the sign
+            x = torch.full((R, LANE), -0.0, dtype=dt, device=dev)
+            theta_eta = 0.2
         else:
             x = torch.randn((R, LANE), generator=gen, device=dev).to(dt)
             theta_eta = 0.2
@@ -549,9 +572,16 @@ def robust_checks(dev, timer, bw, f32_rate, path_shapes):
                  else within(got, want, atol))
         if median and dt == f32:
             check["tol_rule"] = "bitwise"
+        if special == "signed_zeros":   # a zero result keeps its sign
+            zero = want.float() == 0
+            check["ok"] = check["ok"] and bool(
+                torch.all(got.float()[zero] == 0)) and torch.equal(
+                torch.signbit(got.float()[zero]), torch.signbit(
+                    want.float()[zero]))
+            check["tol_rule"] += ", zeros' signs equal"
         esize = x.element_size()
         nbytes = esize * R * LANE * (n + 2)
-        flops = robust_operations(n, m, R)
+        flops = robust_operations(n, m, R, kra.NETWORK_MAX)
         row = {"kernel": "robust_aggregate", "G": n, "R": R,
                "dtype": str(dt).replace("torch.", ""),
                "anchor": f"{'med' if median else 'tm'} k={k}"
@@ -605,13 +635,14 @@ def robust_checks(dev, timer, bw, f32_rate, path_shapes):
                     extra += 1
                     if not row["ok"]:
                         log(f"  {_fmt(row)}")
-    # above 64 DPUs the kernel ranks instead of sorting: the same checks,
-    # and n = 2000 at R = 8, whose keys outgrow shared memory (the path
-    # that reads them through L1/L2)
+    # above the network the kernel selects instead of sorting: the same
+    # checks, n = 1001 beside torch.median, and n = 4000 at R = 8, whose
+    # keys outgrow shared memory (the path that re-reads device memory)
     big = len(rows)
     for n, Rs in ((65, (24, 40, 176)), (100, (24, 40, 176)),
                   (128, (24, 40, 176)), (257, (24, 40, 176)),
-                  (1000, (24, 40, 176)), (2000, (8,))):
+                  (1000, (24, 40, 176)), (1001, (176,)), (2000, (8,)),
+                  (4000, (8,))):
         kt = ops.trim_count(n, 0.2)
         modes = [("median", 0)] + [("trimmed_mean", k) for k in
                                    sorted({0, kt, (n - 1) // 2})]
@@ -624,22 +655,34 @@ def robust_checks(dev, timer, bw, f32_rate, path_shapes):
                     extra += 1
                     if timed or not row["ok"]:
                         log(f"  {_fmt(row)}")
-        if n in (65, 257, 1000, 2000):
+        if n in (65, 257, 1000, 2000, 4000):
             for dt in (f32, bf16):
                 for mode, k in (("median", 0), ("trimmed_mean", kt)):
                     for special, form in (("ties", "eq11"),
                                           ("nonfinite", "eq11"),
                                           (None, "fedavg"),
                                           ("ties", "fedavg")):
-                        row = case(n, 8 if n == 2000 else 40, dt, mode, k,
+                        row = case(n, 8 if n >= 2000 else 40, dt, mode, k,
                                    form, 0, special=special)
                         extra += 1
                         if not row["ok"]:
                             log(f"  {_fmt(row)}")
+                    if n in (65, 1000):
+                        row = case(n, 40, dt, mode, k, "eq11", 0,
+                                   special="signed_zeros")
+                        extra += 1
+                        log(f"  {_fmt(row)}")
+        if n == 1000:   # every third DPU equal, timed: one bin takes most
+            for mode, k in (("median", 0), ("trimmed_mean", kt)):
+                row = case(n, 176, f32, mode, k, "eq11", 0,
+                           special="ties", timed=True)
+                extra += 1
+                log(f"  {_fmt(row)}")
     ranked = rows[big:]
     exact = all(r["max_abs_err"] == 0 for r in ranked
                 if r["mode"] == "median" and r["dtype"] == "float32")
-    log(f"  robust_aggregate, n > 64 (rank selection): {len(ranked)} cases, "
+    log(f"  robust_aggregate, n > {kra.NETWORK_MAX} (radix select): "
+        f"{len(ranked)} cases, "
         f"{sum(1 for r in ranked if not r['ok'])} outside tolerance; f32 "
         f"medians bitwise: {exact}")
     worst = max(r["worst"] for r in rows if r["mode"] == "trimmed_mean")
@@ -651,6 +694,39 @@ def robust_checks(dev, timer, bw, f32_rate, path_shapes):
         f"medians bitwise: {bitwise}; worst trimmed-mean err/tol "
         f"{worst:.2f}")
     return rows, main
+
+
+CROSSOVER_N = (33, 48, 64, 65, 100)
+
+
+def robust_crossover(dev, timer):
+    """Where the register network should hand over to the radix select:
+    f32 medians at R = 176 timed through both (the network only up to 64
+    DPUs), beside the threshold the wrapper uses (``NETWORK_MAX``).
+    Returns {n: {"network_ms", "select_ms"}} and the largest n at which
+    the network was faster."""
+    from repro_torch.kernels import robust_aggregate as kra
+    from repro_torch.kernels.plane import LANE
+
+    gen = torch.Generator(device=dev).manual_seed(55)
+    out, faster = {}, 0
+    for n in CROSSOVER_N:
+        d = torch.randn((n, 176, LANE), generator=gen, device=dev)
+        x = torch.randn((176, LANE), generator=gen, device=dev)
+        rec = {"select_ms": timer(lambda: kra._launch(
+            x, d, 0.2, 0, True, 0))}
+        if n <= max(kra.NMAX):
+            rec["network_ms"] = timer(lambda: kra._launch(
+                x, d, 0.2, 0, True, max(kra.NMAX)))
+            if rec["network_ms"] < rec["select_ms"]:
+                faster = n
+        out[n] = rec
+        log(f"  crossover n={n}: select {rec['select_ms']:.4f} ms"
+            + (f", network {rec['network_ms']:.4f} ms"
+               if "network_ms" in rec else ""))
+    log(f"  the network is faster up to n = {faster} of {CROSSOVER_N}; the "
+        f"wrapper hands over above NETWORK_MAX = {kra.NETWORK_MAX}")
+    return out, faster
 
 
 def _fmt(row):
@@ -1437,7 +1513,8 @@ SWA_EXTRA = [
 ]
 
 
-def swa_checks(dev, timer, bw, f32_rate, path, Hq=48, Hkv=4, D=128):
+def swa_checks(dev, timer, bw, f32_rate, bf16_rate, path, Hq=48, Hkv=4,
+               D=128):
     """``swa_decode_attention`` against its plain version at the first and
     last (B, S, cache_len) of each serve run (``path``: {(B, S,
     cache_len): launches}; bf16, starcoder2's heads) and at
@@ -1452,8 +1529,13 @@ def swa_checks(dev, timer, bw, f32_rate, path, Hq=48, Hkv=4, D=128):
     case is timed beside the plain version and, as the library yardstick,
     one ``F.scaled_dot_product_attention(..., enable_gqa=True)`` with a
     ``pos < cache_len`` mask over the same cache (strided views, no copy).
-    Returns the rows and the row of the main path's shape (the 8 x 512
-    run's first step)."""
+    The bound's
+    operations term takes the dense bf16 tensor rate for bf16 (the kernel
+    runs on the tensor cores) and the f32 rate for float32.  At the main
+    path's shape and at B = 8 full, one call must capture as a CUDA graph
+    of one kernel (the splits merge in the same launch), and the profiler
+    reports its device time per launch.  Returns the rows and the
+    row of the main path's shape (the 8 x 512 run's first step)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1504,11 +1586,16 @@ def swa_checks(dev, timer, bw, f32_rate, path, Hq=48, Hkv=4, D=128):
             q, k, v, cl))
         row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, enable_gqa=True))
-        row["bound_ms"] = max(nbytes / bw, flops / f32_rate) * 1e3
-        row["bound_by"] = "bytes" if nbytes / bw >= flops / f32_rate \
+        rate = bf16_rate if dt == torch.bfloat16 else f32_rate
+        row["bound_ms"] = max(nbytes / bw, flops / rate) * 1e3
+        row["bound_by"] = "bytes" if nbytes / bw >= flops / rate \
             else "operations"
         if on_path and (B, S, cl) == main_key or (B, S, cl, dt) == (
                 8, 4096, 4096, torch.bfloat16):
+            one_kernel_per_call(
+                lambda: kswa.swa_decode_attention(q, k, v, cl),
+                f"swa_decode_attention at (B={B}, len={cl})")
+            row["one_kernel_per_call"] = True
             row["launch_split_us"] = launch_split(
                 lambda: kswa.swa_decode_attention(q, k, v, cl))
         if on_path and (B, S, cl) == main_key:
@@ -1520,9 +1607,13 @@ def swa_checks(dev, timer, bw, f32_rate, path, Hq=48, Hkv=4, D=128):
     return rows, main
 
 
-def launch_split(fn, iters=10) -> dict:
-    """Device microseconds per call of each kernel ``fn`` launches, from
-    ``torch.profiler`` over ``iters`` calls."""
+def launch_split(fn, iters=10, tries=3) -> dict:
+    """Device microseconds per launch of each kernel ``fn`` launches, from
+    ``torch.profiler`` over ``iters`` calls: a report, not a check.  The
+    tracer on the card drops records now and then (8 of 10 launches seen;
+    whole traces in a process that has profiled before), so the time is
+    per launch seen, and a trace without device activity is taken again,
+    up to ``tries`` times in all; after that the result is empty."""
     import re
 
     from torch.autograd import DeviceType
@@ -1530,18 +1621,67 @@ def launch_split(fn, iters=10) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if e.device_type == DeviceType.CUDA and us > 0:
-            m = re.search(r"(\w+_kernel)", e.key)
-            out[m.group(1) if m else e.key] = round(us / iters, 2)
-    return out
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            if e.device_type == DeviceType.CUDA and us > 0:
+                m = re.search(r"(\w+_kernel)", e.key)
+                out[m.group(1) if m else e.key] = round(us / e.count, 2)
+        if out:
+            return out
+    log(f"  the profiler saw no device activity in {tries} traces: no "
+        "device time per launch")
+    return {}
+
+
+def graph_nodes(fn) -> list:
+    """The node types (``CUgraphNodeType``; 0 is a kernel) of a CUDA graph
+    captured from one call of ``fn``, read through the driver API.  A
+    first call on the capture stream makes what ``fn`` keeps per stream
+    (``swa_decode_attention``'s tickets), so the capture holds the call
+    alone.  Unlike a trace, the graph holds every launch."""
+    import ctypes
+
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    torch.cuda.synchronize()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        types.append(t.value)
+    del graph
+    return types
+
+
+def one_kernel_per_call(fn, what: str) -> None:
+    """Raises unless one call of ``fn`` is one kernel launch and nothing
+    else (``graph_nodes``)."""
+    types = graph_nodes(fn)
+    if types != [0]:
+        raise AssertionError(f"{what}: one call captures the graph nodes "
+                             f"{types} (0 = kernel), not one kernel")
 
 
 def _within_bf16_of_f32(got, want_f32, atol) -> dict:
@@ -1627,6 +1767,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import cuda
+    from repro_torch.kernels import robust_aggregate as kra
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1634,10 +1775,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     smi = smi_name_power()
-    bw, f32_rate = card_rates(kind)
+    bw, f32_rate, bf16_rate = card_rates(kind)
     log(f"card: {kind} ({smi}); torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}; peaks used for bounds: {bw / 1e12:.2f} TB/s,"
-        f" {f32_rate / 1e12:.0f} TFLOP/s f32")
+        f" {f32_rate / 1e12:.0f} TFLOP/s f32, {bf16_rate / 1e12:.0f} TFLOP/s "
+        f"bf16 tensor")
 
     log("phase 1: build")
     t0 = time.perf_counter()
@@ -1699,12 +1841,13 @@ def main() -> int:
     rows, main_rows = kernel_checks(dev, timer, bw, f32_rate, checked)
     r_rows, main_rows["robust_aggregate"] = robust_checks(
         dev, timer, bw, f32_rate, t_shapes["robust_aggregate"])
+    crossover, network_faster = robust_crossover(dev, timer)
     s_rows, main_rows["nova_aggregate_stacked"] = stacked_checks(
         dev, timer, bw, f32_rate, m_shapes["nova_aggregate_stacked"])
     u_rows, main_rows["fedprox_update"] = update_checks(
         dev, timer, bw, f32_rate, a_shapes["fedprox_update"])
     w_rows, main_rows["swa_decode_attention"] = swa_checks(
-        dev, timer, bw, f32_rate, s_shapes)
+        dev, timer, bw, f32_rate, bf16_rate, s_shapes)
     rows += r_rows + s_rows + u_rows + w_rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -1742,6 +1885,9 @@ def main() -> int:
         "threat_launch_shapes": {k: [list(key) + [n] for key, n in c.items()]
                                  for k, c in t_shapes.items()},
         "round_check_max_abs_err": round_err, "staging_profile": extra,
+        "robust_crossover": {"network_max": kra.NETWORK_MAX,
+                             "network_faster_up_to": network_faster,
+                             "times": crossover},
         "mesh_rounds": m_records, "mesh_launches": m_launches,
         "mesh_launch_shapes": {k: [list(key) + [n] for key, n in c.items()]
                                for k, c in m_shapes.items()},

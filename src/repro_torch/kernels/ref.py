@@ -39,9 +39,10 @@ def robust_reduce_ref(d_stack, *, k: int = 0, median: bool = False):
     in float32: the median (``median=True``; the mean of the two middle
     values for even n) or the k-trimmed mean (drop the k smallest and k
     largest per coordinate, which needs 0 <= 2k < n).  NaN sorts last, as
-    in ``torch.sort``.  Unweighted by design: dataset-size weights are the
-    lever a byzantine client inflates."""
-    d = torch.sort(d_stack.float(), dim=0).values
+    in ``torch.sort``; the sort is stable, as ``jnp.sort`` is, so equal
+    values (-0 and +0) keep DPU order.  Unweighted by design: dataset-size
+    weights are the lever a byzantine client inflates."""
+    d = torch.sort(d_stack.float(), dim=0, stable=True).values
     n = d.shape[0]
     if median:
         mid = n // 2

@@ -24,9 +24,12 @@ _SYMBOL = {torch.float32: "robust_aggregate_f32",
            torch.bfloat16: "robust_aggregate_bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_void_p]
-NMAX = (8, 16, 32, 64)   # the register network's compile-time sizes; a
-                         # larger stack takes the kernel's rank selection
+                                     ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_void_p]
+NMAX = (8, 16, 32, 64)   # the register network's compile-time sizes
+# Stacks of up to NETWORK_MAX DPUs take the register network, larger ones
+# the radix select: the crossover measured on the card (PERF.md)
+NETWORK_MAX = 64
 
 
 def sorted_range(n: int, k: int, median: bool):
@@ -45,7 +48,15 @@ def robust_aggregate(x, d_stack, theta_eta, *, k: int = 0,
     """Launch the kernel on CUDA tensors.  x: (R, 1024), f32 or bf16;
     d_stack: (n, R, 1024) of x's dtype, n >= 1; ``k`` (trimmed mean) and
     ``median`` as in :func:`robust_aggregate_ref`; theta_eta: a Python
-    number.  Returns x_new."""
+    number.  Stacks of up to NETWORK_MAX DPUs take the register network,
+    larger ones the radix select.  Returns x_new."""
+    return _launch(x, d_stack, theta_eta, k, median, NETWORK_MAX)
+
+
+def _launch(x, d_stack, theta_eta, k: int, median: bool, network_max: int):
+    """:func:`robust_aggregate` with the hand-over point as an argument:
+    stacks of more than ``network_max`` DPUs (at most 64) take the radix
+    select.  The crossover measurement times both at n <= 64 through it."""
     if x.dtype not in _SYMBOL:
         raise TypeError(f"robust_aggregate takes float32 or bfloat16, "
                         f"not {x.dtype}")
@@ -70,7 +81,7 @@ def robust_aggregate(x, d_stack, theta_eta, *, k: int = 0,
     with torch.cuda.device(x.device):
         fn = cuda.entry("robust_aggregate", _SYMBOL[x.dtype], _ARGTYPES)
         err = fn(x.data_ptr(), d_stack.data_ptr(), out.data_ptr(),
-                 R * LANE, n, lo, hi, float(theta_eta),
+                 R * LANE, n, lo, hi, float(theta_eta), int(network_max),
                  torch.cuda.current_stream(x.device).cuda_stream)
     cuda.check("robust_aggregate", err)
     cuda.LAUNCHES["robust_aggregate"] += 1

@@ -21,25 +21,54 @@ from repro_torch.kernels.ref import swa_decode_attention_ref  # noqa: F401
 
 _SYMBOL = {torch.float32: "swa_decode_attention_f32",
            torch.bfloat16: "swa_decode_attention_bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float,
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                           ctypes.c_void_p]
 HEAD_DIMS = (32, 64, 128)
 G_MAX = 16          # query heads per KV head the kernel holds
-TILE = 32           # rows per tile of the kernel
-MIN_SPLIT_ROWS = 64
-BLOCKS_PER_SM = 4   # splits are sized for this many blocks on every SM
+TILE = 64           # rows per tile of the bf16 kernel (two of the f32's)
+GROUP = 8           # partials the kernel merges at once
+MAX_SPLITS = GROUP * GROUP   # two levels of merges
+BLOCKS_PER_SM = 3   # resident blocks per SM: the splits fill one wave
+
+# (device index, stream) -> the tickets of calls on that stream: the
+# kernel leaves them at zero, calls on one stream run one after the
+# other, and calls on two streams never share them
+_TICKETS = {}
 
 
 def split_rows(cells: int, cache_len: int, sms: int):
     """(rows_per_split, n_split): the valid rows of each of the ``cells``
-    (b, kv-head) cells cut into n_split ranges of rows_per_split (a
-    multiple of the kernel's tile, at least MIN_SPLIT_ROWS, the last
-    range shorter), so that about BLOCKS_PER_SM blocks run on each of the
-    ``sms`` SMs."""
-    want = max(1, -(-BLOCKS_PER_SM * sms // cells))
-    rows = max(MIN_SPLIT_ROWS, -(-cache_len // want))
-    rows = -(-rows // TILE) * TILE
-    return rows, -(-cache_len // rows)
+    (b, kv-head) cells cut into n_split <= MAX_SPLITS ranges of
+    rows_per_split (a multiple of the kernel's tile, the last range
+    shorter), as many as fit one wave of BLOCKS_PER_SM blocks on each of
+    the ``sms`` SMs (a block waiting for a second wave would hold up its
+    cell's merge), and at most GROUP (one merge) once GROUP per cell
+    already give every SM a block."""
+    tiles = -(-cache_len // TILE)
+    want = min(MAX_SPLITS, max(1, BLOCKS_PER_SM * sms // cells))
+    if cells * GROUP >= sms:
+        want = min(want, GROUP)
+    per = -(-tiles // want)                       # tiles per split
+    return per * TILE, -(-tiles // per)
+
+
+def scratch_floats(cells: int, n_split: int, G: int, D: int) -> int:
+    """Floats of the kernel's scratch: a partial (m, l, acc) per split and,
+    with more than one group of splits, per group."""
+    groups = -(-n_split // GROUP)
+    return cells * (n_split + (groups if groups > 1 else 0)) * G * (D + 2)
+
+
+def _tickets(device, stream, cells: int):
+    """A cell's ticket and its groups' (1 + GROUP per cell), zero."""
+    key = (device.index, stream.cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < cells * (1 + GROUP):
+        with torch.cuda.stream(stream):
+            t = torch.zeros(max(cells, 64) * (1 + GROUP), dtype=torch.int32,
+                            device=device)
+        _TICKETS[key] = t
+    return t
 
 
 def _check(q, k_cache, v_cache, cache_len):
@@ -91,15 +120,17 @@ def swa_decode_attention(q, k_cache, v_cache, cache_len):
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     rows, n_split = split_rows(B * Hkv, cache_len, sms)
     out = torch.empty_like(q)
-    scratch = torch.empty(B * Hkv * n_split * G * (D + 2),
+    scratch = torch.empty(scratch_floats(B * Hkv, n_split, G, D),
                           dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device)
+    tickets = _tickets(q.device, stream, B * Hkv)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
     with torch.cuda.device(q.device):
         fn = cuda.entry("swa_decode_attention", _SYMBOL[q.dtype], _ARGTYPES)
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 out.data_ptr(), scratch.data_ptr(), B, S, Hkv, G, D,
-                 cache_len, rows, n_split, scale,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 out.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), B,
+                 S, Hkv, G, D, cache_len, rows, n_split, scale,
+                 stream.cuda_stream)
     cuda.check("swa_decode_attention", err)
     cuda.LAUNCHES["swa_decode_attention"] += 1
     return out

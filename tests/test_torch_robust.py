@@ -311,7 +311,7 @@ def test_robust_wrapper_refuses_what_the_kernel_does_not_take():
         tra.robust_aggregate(x.half(), d.half(), 0.1)
     with pytest.raises(TypeError, match="dtype"):
         tra.robust_aggregate(x, d.to(torch.bfloat16), 0.1)
-    # above the register network's 64 DPUs the kernel ranks instead: a
+    # above the register network's 64 DPUs the kernel selects instead: a
     # stack of 65 passes every check and reaches the device rule
     with pytest.raises(ValueError, match="CUDA"):
         tra.robust_aggregate(x, torch.zeros((65, 8, LANE)), 0.1,
@@ -369,3 +369,224 @@ def test_sorting_network_sorts_by_the_zero_one_principle(nmax, n):
     assert [len(cs.network_pairs(m)) for m in (8, 16, 32, 64)] == \
         [19, 63, 191, 543]
     assert cs.robust_operations(25, 15, 176) == 176 * 1024 * (2 * 140 + 17)
+
+
+# ------------------------------------------- the radix select's logic --
+
+def _order_keys(v):
+    """``order_key`` of ``csrc/robust_aggregate.cu`` on an f32 array: NaN
+    above +inf, -0 as 0x7fffffff (a key no value takes)."""
+    b = v.astype(np.float32).view(np.uint32)
+    k = np.where(b & 0x80000000, ~b, b | 0x80000000).astype(np.uint32)
+    return np.where(np.isnan(v), np.uint32(0xFFFFFFFF), k).astype(np.uint32)
+
+
+def _tie_zero(k):
+    """The key as the kernel's comparisons read it: -0 ties +0."""
+    return np.where(k == 0x7FFFFFFF, np.uint32(0x80000000), k) \
+        .astype(np.uint32)
+
+
+def _key_value(k):
+    """``key_value``: the f32 value a key decodes to."""
+    return np.where(k & 0x80000000, k & 0x7FFFFFFF, ~k).astype(np.uint32) \
+        .view(np.float32)
+
+
+def _select_model(v, lo, hi, low=0, tile=16, runs=32, gather=64):
+    """The kernel's radix select (``robust_select_kernel``) on an (n, C)
+    f32 stack, block by block of ``tile`` coordinates, as the kernel runs
+    it: digit passes from the top with one histogram while the two
+    targets (ranks lo and hi - 1) share a prefix, the early stop once both
+    targets of every coordinate of the block sit in bins of at most
+    ``gather`` keys (or at the last digit; no pass at all when n <=
+    ``gather``); then each boundary is the key
+    of its rank, in the stable order (key, DPU), among the keys whose
+    decided bits equal its prefix, and the sum runs over ``runs`` runs of
+    DPUs added in order, over the (key, DPU) from one boundary to the
+    other.  ``low``: the key bits left undecided (16 for bf16).  Returns
+    the keys, the boundaries (key, DPU), their ranks within their bins
+    (the boundary ties before each boundary, once the bin is one key
+    value), the passes per block and the f32 reduce."""
+    n, C = v.shape
+    raw = _order_keys(v)
+    keys = _tie_zero(raw)
+    kmask = np.uint32((0xFFFFFFFF << low) & 0xFFFFFFFF)
+    bkey = np.zeros((2, C), np.uint32)
+    bidx = np.zeros((2, C), np.int64)
+    rest = np.zeros((2, C), np.int64)
+    pref = np.zeros((2, C), np.uint32)
+    dmasks = np.zeros(C, np.uint32)
+    passes = []
+    cols_all = np.arange(C)
+    for c0 in range(0, C, tile):
+        cols = cols_all[c0:c0 + tile]
+        kb = keys[:, cols]
+        prefix = np.zeros((2, len(cols)), np.uint32)
+        rank = np.array([[lo] * len(cols), [hi - 1] * len(cols)], np.int64)
+        shift = 24 if n > gather else 32     # n <= gather: no digit pass
+        while shift < 32:
+            hmask = np.uint32(0 if shift == 24 else
+                              (0xFFFFFFFF << (shift + 8)) & 0xFFFFFFFF)
+            dig = ((kb >> np.uint32(shift)) & np.uint32(0xFF)).astype(int)
+            parted = prefix[0] != prefix[1]
+            m0 = (kb & hmask) == prefix[0]
+            m1 = ~m0 & ((kb & hmask) == prefix[1])
+            hist = np.zeros((2, len(cols), 256), np.int64)
+            cc = np.broadcast_to(np.arange(len(cols)), kb.shape)
+            np.add.at(hist[0], (cc[m0], dig[m0]), 1)
+            np.add.at(hist[1], (cc[m1], dig[m1]), 1)
+            size = np.zeros((2, len(cols)), np.int64)
+            for t in range(2):
+                h = hist[0] if t == 0 else np.where(parted[:, None],
+                                                     hist[1], hist[0])
+                cum = np.cumsum(h, axis=1)
+                d = np.argmax(cum > rank[t][:, None], axis=1)
+                at = h[np.arange(len(cols)), d]
+                rank[t] -= cum[np.arange(len(cols)), d] - at
+                size[t] = at
+                prefix[t] |= (d.astype(np.uint32) << np.uint32(shift))
+            passes.append((32 - shift) // 8)
+            if (size <= gather).all() or shift == low:
+                break
+            shift -= 8
+        if shift == 32:
+            passes.append(0)
+        dmask = np.uint32((0xFFFFFFFF << shift) & 0xFFFFFFFF)
+        rest[:, cols] = rank
+        pref[:, cols] = prefix
+        dmasks[cols] = dmask
+        for t in range(2):
+            for i, col in enumerate(cols):
+                members = np.nonzero((kb[:, i] & dmask) == prefix[t, i])[0]
+                ordered = members[np.lexsort((members, kb[members, i]))]
+                bidx[t, col] = ordered[rank[t, i]]
+                bkey[t, col] = kb[bidx[t, col], i] & kmask
+    # the sum: run r adds, in DPU order, DPUs [n r / 32, n (r + 1) / 32)
+    k = keys & kmask
+    j = np.arange(n)[:, None]
+
+    def before(ka, a, kb_, b):
+        return (ka < kb_) | ((ka == kb_) & (a < b))
+
+    take = ~before(k, j, bkey[0], bidx[0]) & \
+        ~before(bkey[1], bidx[1], k, j)
+    total = np.zeros(C, np.float32)
+    anyv = np.zeros(C, bool)
+    with np.errstate(invalid="ignore", over="ignore"):
+        for r in range(runs):
+            s = np.zeros(C, np.float32)
+            a = np.zeros(C, bool)
+            for i in range(n * r // runs, n * (r + 1) // runs):
+                vi = _key_value(raw[i])
+                s = np.where(take[i], np.where(a, s + vi, vi), s)
+                a |= take[i]
+            total = np.where(a, np.where(anyv, total + s, s), total)
+            anyv |= a
+        red = total / np.float32(hi - lo)
+    return {"raw": raw, "keys": keys, "bkey": bkey, "bidx": bidx,
+            "rest": rest, "prefix": pref, "dmask": dmasks, "passes": passes,
+            "taken": take.sum(axis=0),
+            "reduce": red.astype(np.float32)}
+
+
+def _select_stack(kind, n, C, seed):
+    rng = np.random.RandomState(seed)
+    v = rng.normal(size=(n, C)).astype(np.float32)
+    if kind == "every_third_equal":
+        v[::3] = v[0]
+    elif kind == "all_equal":
+        v[:] = v[0]
+    elif kind == "signed_zeros":
+        v = rng.choice(np.array([-0.0, 0.0, 0.0, -1.5, 2.0], np.float32),
+                       size=(n, C))
+    elif kind == "nonfinite":
+        v[rng.rand(n, C) < 0.05] = np.nan
+        v[rng.rand(n, C) < 0.05] = np.inf
+        v[rng.rand(n, C) < 0.05] = -np.inf
+    return v
+
+
+def _select_cases():
+    out = []
+    for n in (65, 100, 257, 1000, 2000):
+        ks = sorted({0, ops.trim_count(n, 0.2), (n - 1) // 2})
+        for mode, k in [("median", 0)] + [("trimmed_mean", k) for k in ks]:
+            out.append((n, mode, k))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["random", "every_third_equal", "all_equal",
+                                  "signed_zeros", "nonfinite"])
+@pytest.mark.parametrize("n,mode,k", _select_cases())
+def test_radix_select_model_matches_a_stable_sort(n, mode, k, kind):
+    """A numpy model of the kernel's radix select, pass by pass, against a
+    stable ``np.argsort`` (NaN last; -0 and +0 equal, so they keep DPU
+    order): the order keys sort as the values do and decode to them
+    (-0 included), the boundaries (key,
+    DPU) of ranks lo and hi - 1 and their tie counts are the sort's, and
+    the model's reduce equals ``robust_reduce_ref`` bitwise for the
+    median and within 2m f32 ulps of the largest |d| for the trimmed mean
+    (m values summed in DPU order here, in sorted order there)."""
+    median = mode == "median"
+    lo, hi = tra.sorted_range(n, k, median)
+    C = 48                                   # three blocks of 16
+    v = _select_stack(kind, n, C, seed=n + 7 * k)
+    got = _select_model(v, lo, hi)
+    order = np.argsort(v, axis=0, kind="stable")
+    cols = np.arange(C)
+    keys = got["keys"]
+    ks = keys[order, cols]
+    assert np.all(ks[1:] >= ks[:-1])          # keys follow the values
+    vs = v[order, cols]
+    same = (vs[1:] == vs[:-1]) | (np.isnan(vs[1:]) & np.isnan(vs[:-1]))
+    np.testing.assert_array_equal(ks[1:] == ks[:-1], same)
+    for t, r in enumerate((lo, hi - 1)):
+        idx = order[r]
+        np.testing.assert_array_equal(got["bidx"][t], idx)
+        np.testing.assert_array_equal(got["bkey"][t], keys[idx, cols])
+        # the boundary ties before it in DPU order: the stable order's
+        below = np.sum(keys < keys[idx, cols], axis=0)
+        ties = np.sum((keys == keys[idx, cols]) &
+                      (np.arange(n)[:, None] < got["bidx"][t]), axis=0)
+        np.testing.assert_array_equal(ties, r - below)
+        # its rank within its bin: r less the keys of the lower bins
+        lower = np.sum((keys & got["dmask"]) < got["prefix"][t], axis=0)
+        np.testing.assert_array_equal(got["rest"][t], r - lower)
+    back = _key_value(got["raw"])             # the keys decode to the values
+    fin = ~np.isnan(v)
+    np.testing.assert_array_equal(back[fin].view(np.uint32),
+                                  v[fin].view(np.uint32))
+    assert np.all(np.isnan(back[~fin]))
+    assert all(0 <= p <= 4 for p in got["passes"])
+    assert all(p > 0 for p in got["passes"]) == (n > 64)
+    np.testing.assert_array_equal(got["taken"], hi - lo)
+    want = ref.robust_reduce_ref(torch.from_numpy(v), k=k,
+                                 median=median).numpy()
+    red = got["reduce"]
+    np.testing.assert_array_equal(np.isnan(red), np.isnan(want))
+    inf = np.isinf(want)
+    np.testing.assert_array_equal(red[inf], want[inf])
+    fin = np.isfinite(want)
+    if median:
+        np.testing.assert_array_equal(red[fin].view(np.uint32),
+                                      want[fin].view(np.uint32))
+    else:
+        df = np.abs(v[np.isfinite(v)])
+        dmax = np.float32(df.max()) if df.size else np.float32(0)
+        atol = 2 * (hi - lo) * np.spacing(dmax)
+        assert np.all(np.abs(red[fin] - want[fin]) <= atol)
+
+
+def test_radix_select_model_bf16_keys_take_two_passes():
+    """bf16 keys differ only in their top 16 bits: the model stops after
+    two digits and finds the same boundaries as on the full keys."""
+    v = torch.from_numpy(_select_stack("every_third_equal", 257, 64, 3)) \
+        .to(torch.bfloat16).float().numpy()
+    lo, hi = tra.sorted_range(257, 51, False)
+    got = _select_model(v, lo, hi, low=16)
+    full = _select_model(v, lo, hi)
+    assert max(got["passes"]) <= 2
+    np.testing.assert_array_equal(got["bidx"], full["bidx"])
+    np.testing.assert_array_equal(got["bkey"], full["bkey"] & 0xFFFF0000)
+    np.testing.assert_array_equal(got["reduce"], full["reduce"])

@@ -13,8 +13,12 @@ results agree to that order, and a last-bit difference can round to the
 neighbouring bf16 value).
 
 The CUDA kernel cannot run here; ``chip_smoke.py`` holds it against the
-plain version on the card.  Here the tests check the dispatch rule and the
-wrapper's refusals.
+plain version on the card.  Here the tests check the dispatch rule, the
+wrapper's refusals and split rule, and the bf16 kernel's arithmetic,
+emulated in torch (f32 sums of exact bf16 products, P in three bf16
+terms, 64-row tiles of four 16-row warps, the split merge) against the
+plain version and the Pallas kernel; a single bf16 cast of P fails the
+same check.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -132,10 +136,132 @@ def test_wrapper_refuses(what):
 
 
 @pytest.mark.parametrize("cells,cache_len", [(32, 4096), (32, 513), (8, 4096),
-                                             (4, 32768), (32, 1), (1, 100)])
+                                             (4, 32768), (32, 1), (1, 100),
+                                             (16, 777), (4, 10 ** 6)])
 def test_split_rows_cover_the_valid_rows(cells, cache_len):
     """Every split holds at least one valid row and the splits cover
-    [0, cache_len) exactly, in whole tiles but the last."""
+    [0, cache_len) exactly, in whole tiles but the last; at most
+    MAX_SPLITS of them, and no more blocks than one wave of BLOCKS_PER_SM
+    per SM unless every cell needs one."""
     rows, n = tswa.split_rows(cells, cache_len, 132)
-    assert rows % tswa.TILE == 0 and rows >= tswa.MIN_SPLIT_ROWS
+    assert rows % tswa.TILE == 0 and 1 <= n <= tswa.MAX_SPLITS
     assert (n - 1) * rows < cache_len <= n * rows
+    assert cells * n <= max(tswa.BLOCKS_PER_SM * 132, cells)
+
+
+# ------------------------------------- the bf16 kernel's arithmetic --
+
+TILE_ROWS, WARP_ROWS = 64, 16        # a tile of the mma kernel; a warp's
+
+
+def _bf16_terms(p, terms):
+    """p as a sum of ``terms`` bf16 values, each the rest of the last
+    rounded to nearest (the kernel's split of P before its mma)."""
+    out, rest = [], p
+    for _ in range(terms):
+        h = rest.to(torch.bfloat16).float()
+        out.append(h)
+        rest = rest - h
+    return out
+
+
+def _merge(parts):
+    """(m, l, acc) partials merged: M = max m, w = exp(m - M)."""
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = sum(l * torch.exp(m - M) for m, l, _ in parts)
+    A = sum(a * torch.exp(m - M)[..., None] for m, _, a in parts)
+    return M, L, A
+
+
+def _emulate(q, k, v, cache_len, sms, terms=3):
+    """The bf16 kernel's numerics in torch, f32 throughout: the wrapper's
+    splits; per split 64-row tiles, per warp 16 rows with its own online
+    (m, l, acc); scores from exact bf16 products summed in f32, times
+    1/sqrt(D); P V with P in ``terms`` bf16 terms; the four warps merged,
+    then the splits in groups of GROUP (two levels above GROUP); out =
+    acc / max(L, 1e-30), rounded to bf16."""
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = np.float32(1.0) / np.sqrt(np.float32(D))
+    rows, n_split = tswa.split_rows(B * Hkv, cache_len, sms)
+    qf = q.float().reshape(B, Hkv, G, D)
+    kf, vf = k.float(), v.float()
+    out = torch.empty(B, Hkv, G, D)
+    for b in range(B):
+        for h in range(Hkv):
+            splits = []
+            for sp in range(n_split):
+                r0, r1 = sp * rows, min((sp + 1) * rows, cache_len)
+                warps = []
+                for w in range(4):
+                    m = torch.full((G,), -1e30)
+                    l = torch.zeros(G)
+                    acc = torch.zeros(G, D)
+                    for t0 in range(r0, r1, TILE_ROWS):
+                        lo = t0 + w * WARP_ROWS
+                        idx = torch.arange(lo, lo + WARP_ROWS)
+                        valid = idx < r1
+                        kt = kf[b, idx.clamp(max=kf.shape[1] - 1), h]
+                        vt = torch.where(valid[:, None],
+                                         vf[b, idx.clamp(max=vf.shape[1] - 1),
+                                            h], 0.0)
+                        s = (qf[b, h] @ kt.T) * scale
+                        s = torch.where(valid[None], s, -1e30)
+                        m_new = torch.maximum(m, s.amax(1))
+                        corr = torch.exp(m - m_new)
+                        p = torch.where(valid[None],
+                                        torch.exp(s - m_new[:, None]), 0.0)
+                        l = l * corr + p.sum(1)
+                        acc = acc * corr[:, None]
+                        for term in _bf16_terms(p, terms):
+                            acc = acc + term @ vt
+                        m = m_new
+                    warps.append((m, l, acc))
+                splits.append(_merge(warps))
+            groups = [_merge(splits[i:i + tswa.GROUP])
+                      for i in range(0, n_split, tswa.GROUP)]
+            M, L, A = groups[0] if len(groups) == 1 else _merge(groups)
+            out[b, h] = A / torch.clamp(L, min=1e-30)[:, None]
+    return out.reshape(B, Hq, D).to(torch.bfloat16)
+
+
+def _bf16_check(got, want_f32, v):
+    """chip_smoke.py's bf16 rule: within one bf16 ulp of the f32 result
+    (the larger ulp of |got| and |want|), or 8 f32 ulps of max |v|.
+    Returns the largest error / bound."""
+    g = got.float().numpy()
+    w = np.asarray(want_f32, dtype=np.float32)
+    atol = 8 * np.spacing(np.float32(float(v.float().abs().max())))
+    bound = np.maximum(_bf16_ulp(np.maximum(np.abs(g), np.abs(w))), atol)
+    return float(np.max(np.abs(g - w) / bound))
+
+
+@pytest.mark.parametrize("cache_len,sms", [(1, 8), (77, 8), (320, 8),
+                                           (1024, 40)])
+def test_bf16_kernel_arithmetic_within_tolerance(cache_len, sms):
+    """The emulated bf16 kernel (three-term P) against the plain f32
+    version and the Pallas kernel (interpret mode) on the same inputs,
+    within the bf16 tolerance chip_smoke.py holds the card to.  (1024,
+    40) takes 16 splits: the two-level merge."""
+    S = max(320, cache_len)
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(cache_len, 2, 24, 2, 64, S,
+                                           "bf16")
+    got = _emulate(tq, tk, tv, cache_len, sms)
+    want = ref.swa_decode_attention_ref(tq.float(), tk.float(), tv.float(),
+                                        cache_len)
+    assert _bf16_check(got, want.numpy(), tv) <= 1.0
+    pallas = jswa(jq, jk, jv, cache_len, chunk=64, interpret=True)
+    _assert_close(got, pallas, "bf16")
+
+
+def test_single_bf16_cast_of_p_falls_outside_the_tolerance():
+    """Why P goes through the mma in three bf16 terms: one cast of P
+    errs by up to 2^-9 p, which the same inputs and tolerance reject."""
+    (_, tq), (_, tk), (_, tv) = _inputs(7, 2, 24, 2, 64, 320, "bf16")
+    want = ref.swa_decode_attention_ref(tq.float(), tk.float(), tv.float(),
+                                        300).numpy()
+    assert _bf16_check(_emulate(tq, tk, tv, 300, 8, terms=3), want,
+                       tv) <= 1.0
+    assert _bf16_check(_emulate(tq, tk, tv, 300, 8, terms=1), want,
+                       tv) > 1.0
