@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of CE-FL (``src/repro_torch``) on one NVIDIA
-card and check it: the CE-FL rounds and the LM serving path.
+card and check it: the CE-FL rounds, the front door with the ``cefl``
+strategy and the LM serving path.
 
     python3 chip_smoke.py            # from the repo root, on a machine with
                                      # one CUDA card, nvcc and nvidia-smi
@@ -52,17 +53,37 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              kernel.  Logits finite, tokens in the vocab; prefill seconds,
              decode ms per step, tokens/s, peak memory, and a profiled
              decode step.  The weights are freed after it.
+7. cefl    — (runs after 6) the front door, ``repro_torch.experiments.run``,
+             with the ``cefl`` strategy: ``paper_table1`` at paper width
+             (20/10/5 network, the (176, 1024) plane, constants estimated
+             on the card, ``solver_outer=4``, ``reoptimize_every=3``) cut
+             to 4 rounds and one seed (two SCA solves), then
+             ``quickstart`` whole (8 rounds).  The SCA solve and the
+             aggregator enumeration run on the card.  Counters are set to
+             0 just before and read just after; every round must launch
+             ``fedprox_accum`` gamma times per DPU group and
+             ``nova_aggregate`` once, every plan must validate and the
+             aggregation point be one of the S DCs.  Per round: plan
+             seconds (SCA solve, ``select_aggregator``, the rest), outer
+             and primal-dual iterations, device-round seconds; the
+             estimation's seconds.  Then one paper-width SCA solve,
+             centralized and distributed, card against CPU to
+             ``tests/test_solver_diff.py``'s bar, and one profiled solve.
 4. kernels — each hand-written kernel against its plain PyTorch version on
              the same card tensors, at every shape the paths launched it
-             with and at extra cases, with the tolerance stated below;
-             then each is timed with CUDA events (median of 30 launches,
-             L2 flushed before each) beside its plain version, its bound
-             and a one-call PyTorch yardstick where one exists;
+             with and at extra cases, with the tolerance stated below
+             (signed-zero stacks at n = 5, 25, 64 compared by sign;
+             ``nova_aggregate`` and its stacked form at 12,289 and 20,000
+             DPUs); then each is timed with CUDA events (median of 30
+             launches, L2 flushed before each) beside its plain version,
+             its bound and a one-call PyTorch yardstick where one exists;
              ``robust_aggregate``'s network and radix select are timed
              against each other at n = 33-100 (the crossover),
              and ``swa_decode_attention`` must show one kernel per call.
              The kernels line reports the largest group the paths
-             launched.
+             launched.  Each kernel's main row is timed a second way, as
+             a run of 200 launches between one event pair (``RunTimer``),
+             beside an empty kernel under both timers.
 5. check   — one fused round and one mesh round at paper width on the card
              against the same staged round on the CPU (plain versions),
              to the stated tolerance; starcoder2-15b at full width with 2
@@ -191,6 +212,116 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+L2_BYTES = 50 * 10**6
+
+
+class RunTimer:
+    """Device time per launch over a run of many launches between one event
+    pair.  The launches rotate
+    over copies of the inputs whose bytes together exceed twice the 50 MB
+    L2, so each launch finds its inputs cold, as ``Timer``'s flush does;
+    the stream is held by a device-side sleep while the host enqueues the
+    run, so the interval holds back-to-back device work and no host time.
+    Median over ``reps`` runs."""
+
+    def __call__(self, fn, make_args, nbytes, launches=200, reps=3) -> float:
+        copies = max(2, -(-2 * L2_BYTES // max(int(nbytes), 1)))
+        args = [make_args() for _ in range(copies)]
+        for a in args[:2]:
+            fn(*a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(launches):
+            fn(*args[i % copies])
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        # hold the stream for 1.5x the host's enqueue time plus 2 ms (at
+        # up to 2 GHz; a slower clock holds longer)
+        cycles = int((1.5 * host_s + 2e-3) * 2e9)
+        per = []
+        for _ in range(reps):
+            torch.cuda._sleep(cycles)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            for i in range(launches):
+                fn(*args[i % copies])
+            e.record()
+            torch.cuda.synchronize()
+            per.append(s.elapsed_time(e) / launches)
+        del args
+        return statistics.median(per)
+
+
+def run_column(dev, main_rows, timer, run_timer):
+    """The second time column of the kernels' main rows (``RunTimer``), at
+    each row's shape on fresh random inputs, and the floor of both timers:
+    an empty kernel (``torch.cuda._sleep(0)``) under each.  Returns
+    {kernel: ms per launch} and the floors."""
+    from repro_torch.kernels import fedprox_update as kfp
+    from repro_torch.kernels import nova_aggregate as kna
+    from repro_torch.kernels import robust_aggregate as kra
+    from repro_torch.kernels import swa_decode_attention as kswa
+    from repro_torch.kernels.plane import LANE
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def randn(shape, dt=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    out = {}
+    r = main_rows["fedprox_accum"]
+    G, R = r["G"], r["R"]
+    anc_shape = (R, LANE) if r["anchor"] == "shared" else (G, R, LANE)
+    coef = torch.rand(G, generator=gen, device=dev) + 0.5
+    act = torch.ones(G, device=dev)
+    out["fedprox_accum"] = run_timer(
+        lambda x, g, a, acc: kfp.fedprox_accum(x, g, a, acc, coef, act, 0.1,
+                                               0.01),
+        lambda: (randn((G, R, LANE)), randn((G, R, LANE)), randn(anc_shape),
+                 randn((G, R, LANE))), r["bytes"])
+    for name, fn in (("nova_aggregate", kna.nova_aggregate),
+                     ("nova_aggregate_stacked", kna.nova_aggregate_stacked)):
+        r = main_rows[name]
+        n, R = r["G"], r["R"]
+        w = torch.rand(n, generator=gen, device=dev) + 0.1
+        w = w / w.sum()
+        xs = (R, LANE) if name == "nova_aggregate" else (n, R, LANE)
+        out[name] = run_timer(
+            lambda x, d, fn=fn, w=w: fn(x, d, w, 0.2),
+            lambda xs=xs, n=n, R=R: (randn(xs), randn((n, R, LANE))),
+            r["bytes"])
+    r = main_rows["robust_aggregate"]
+    n, R, k, med = r["G"], r["R"], r["k"], r["mode"] == "median"
+    te = -1.0 if r["form"] == "fedavg" else 0.2
+    out["robust_aggregate"] = run_timer(
+        lambda x, d: kra.robust_aggregate(x, d, te, k=k, median=med),
+        lambda: (randn((R, LANE)), randn((n, R, LANE))), r["bytes"])
+    r = main_rows["fedprox_update"]
+    R = r["R"]
+    out["fedprox_update"] = run_timer(
+        lambda x, g, a: kfp.fedprox_update(x, g, a, 0.1, 0.01),
+        lambda: tuple(randn((R, LANE)) for _ in range(3)), r["bytes"])
+    r = main_rows["swa_decode_attention"]
+    B, Hq, Hkv, D, S, cl = (r["B"], r["Hq"], r["Hkv"], r["D"], r["S"],
+                            r["cache_len"])
+    dt = getattr(torch, r["dtype"])
+    out["swa_decode_attention"] = run_timer(
+        lambda q, kc, vc: kswa.swa_decode_attention(q, kc, vc, cl),
+        lambda: (randn((B, Hq, D), dt), randn((B, S, Hkv, D), dt),
+                 randn((B, S, Hkv, D), dt)), r["bytes"])
+    floor = {"empty_kernel_ms": timer(lambda: torch.cuda._sleep(0)),
+             "empty_kernel_run_ms": run_timer(
+                 lambda: torch.cuda._sleep(0), lambda: (), L2_BYTES * 2)}
+    for name, ms in out.items():
+        log(f"  {name:<23} per call {main_rows[name]['ms'] * 1e3:8.2f} us"
+            f"   run of 200 {ms * 1e3:8.2f} us   bound "
+            f"{main_rows[name]['bound_ms'] * 1e3:8.2f} us")
+    log(f"  empty kernel: per call {floor['empty_kernel_ms'] * 1e3:.2f} us,"
+        f" run of 200 {floor['empty_kernel_run_ms'] * 1e3:.2f} us")
+    return out, floor
+
+
 # -------------------------------------------------------- tolerance -----
 
 def _spacing(t: torch.Tensor) -> float:
@@ -264,7 +395,7 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
     cases += [(5, R, dt, anc, 0) for R in (24, 40)
               for dt in (f32, torch.bfloat16)
               for anc in ("shared", "per_dpu")]
-    G_main = max(G for G, _, _ in path)
+    G_main = max(G for G, R, _ in path if R == 176)
     for G, R, dt, anc, on_path in cases:
         x, g, acc = (randn((G, R, LANE), dt) for _ in range(3))
         anchor = randn((R, LANE) if anc == "shared" else (G, R, LANE), dt)
@@ -294,13 +425,14 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
             row["bound_ms"] = max(nbytes / bw, flops / f32_rate) * 1e3
             row["bound_by"] = "bytes" if nbytes / bw >= flops / f32_rate \
                 else "operations"
-        if on_path and G == G_main:
+        if on_path and G == G_main and R == 176:
             main["fedprox_accum"] = row
         rows.append(row)
         log(f"  {_fmt(row)}")
 
     # nova_aggregate: the path's (n, R), then n in {5, 25} DPUs at R = 176,
-    # f32 and bf16, plus the edge rows.  Tolerance: two f32 ulps of the
+    # f32 and bf16, plus the edge rows, and n = 12,289 and 20,000 at R = 8
+    # (0.4 and 0.65 GB of d).  Tolerance: two f32 ulps of the
     # largest x plus theta*eta * n ulps of the largest d (the kernel sums
     # the n terms in order with FMAs, the plain einsum in cuBLAS's order).
     path = path_shapes["nova_aggregate"]
@@ -309,7 +441,10 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
               for dt in (f32, torch.bfloat16)]
     cases += [(5, R, dt, 0) for R in (24, 40)
               for dt in (f32, torch.bfloat16)]
-    n_main = max(n for n, _ in path)
+    n_main = max(n for n, R in path if R == 176)
+    # past 12,288 DPUs, the count whose weights once filled the kernel's
+    # shared memory: the weights now pass through it in chunks
+    cases += [(n, 8, f32, 0) for n in (12289, 20000)]
     for n, R, dt, on_path in cases:
         x = randn((R, LANE), dt)
         d = randn((n, R, LANE), dt)
@@ -339,10 +474,11 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
             row["bound_ms"] = max(nbytes / bw, flops / f32_rate) * 1e3
             row["bound_by"] = "bytes" if nbytes / bw >= flops / f32_rate \
                 else "operations"
-        if on_path and n == n_main:
+        if on_path and n == n_main and R == 176:
             main["nova_aggregate"] = row
         rows.append(row)
         log(f"  {_fmt(row)}")
+        del d
     return rows, main
 
 
@@ -350,7 +486,8 @@ def stacked_checks(dev, timer, bw, f32_rate, path):
     """``nova_aggregate_stacked`` against its plain version at every (n, R)
     the mesh path launched it with (``path``: {(n, R): launches}, f32,
     rows of x that differ), and at n in {1, 5, 64} for R = 176 and n = 5
-    for the edge rows 24 and 40, f32 and bf16.  Tolerance, as for
+    for the edge rows 24 and 40, f32 and bf16, and n = 12,289 and 20,000
+    at R = 8 (past the old cap).  Tolerance, as for
     ``nova_aggregate``: two f32 ulps of the largest |x| plus theta_eta * n
     ulps of the largest |d|.  Each case also says whether row j equals
     ``nova_aggregate`` (the one-plane kernel) on x[j] bit for bit; those
@@ -366,6 +503,7 @@ def stacked_checks(dev, timer, bw, f32_rate, path):
     cases = [(n, R, f32, c) for (n, R), c in sorted(path.items())]
     cases += [(n, 176, dt, 0) for n in (1, 5, 64) for dt in (f32, bf16)]
     cases += [(5, R, dt, 0) for R in (24, 40) for dt in (f32, bf16)]
+    cases += [(n, 8, f32, 0) for n in (12289, 20000)]   # past the old cap
     n_main = max(n for n, _ in path)
     rows, main = [], None
     for n, R, dt, on_path in cases:
@@ -376,8 +514,11 @@ def stacked_checks(dev, timer, bw, f32_rate, path):
         theta_eta = 0.1
         k = kna.nova_aggregate_stacked(x, d, w, theta_eta)
         r = ref.nova_aggregate_ref(x, d, w, theta_eta)
+        # row j against the one-plane kernel on x[j] (a sample of rows
+        # past the old cap)
+        js = range(n) if n <= 64 else (0, n // 2, n - 1)
         one = torch.stack([kna.nova_aggregate(x[j], d, w, theta_eta)
-                           for j in range(n)])
+                           for j in js])
         torch.cuda.synchronize()
         atol = 2 * _spacing(x) + theta_eta * n * _spacing(d)
         nbytes = x.element_size() * R * LANE * 3 * n
@@ -385,7 +526,8 @@ def stacked_checks(dev, timer, bw, f32_rate, path):
         row = {"kernel": "nova_aggregate_stacked", "G": n, "R": R,
                "dtype": str(dt).replace("torch.", ""), "anchor": "-",
                "path_launches": on_path, "bytes": nbytes,
-               "rows_equal_nova_aggregate": bool(torch.equal(k, one)),
+               "rows_equal_nova_aggregate": bool(torch.equal(
+                   k[list(js)], one)),
                **within(k, r, atol)}
         if R == 176:
             M = (-theta_eta * torch.outer(torch.ones(n, device=dev), w)
@@ -512,9 +654,11 @@ def robust_checks(dev, timer, bw, f32_rate, path_shapes):
     (n-1)//2}, R in {24, 40, 176} (1001: 176), f32 and bf16, n = 2000 at
     R = 8, and n = 4000 at R = 8 (keys past shared memory, re-read from
     device memory); a tie-heavy stack (timed at n = 1000), NaN and +-inf
-    entries, the robust-FedAvg form x = 0, theta_eta = -1, and at n = 65
-    and 1000 stacks of -0 and +0 with x = -0 (a zero result keeps the
-    sign of the stable order's zero, which must match).  Tolerance: the
+    entries, the robust-FedAvg form x = 0, theta_eta = -1, and at n = 5,
+    25, 64 (the network; median and trimmed mean, both forms, f32 and
+    bf16) and 65, 1000 (the select) stacks of -0 and +0 with x = -0 (a
+    zero result keeps the sign of the stable order's zero, which must
+    match: compared by ``torch.signbit`` where the value is zero).  Tolerance: the
     median is bitwise equal (the same sorted values, one add and a halving for
     even n, and an unfused multiply and subtract in both); the trimmed mean
     within two f32 ulps of the largest |x| plus |theta_eta| * 2m ulps of the
@@ -551,11 +695,13 @@ def robust_checks(dev, timer, bw, f32_rate, path_shapes):
             d[1 % n, :, 128:384] = float("inf")
             d[2 % n, :, 300:500] = float("-inf")
         d = d.to(dt)
-        if form == "fedavg":
-            x, theta_eta = torch.zeros((R, LANE), dtype=dt, device=dev), -1.0
-        elif special == "signed_zeros":   # -0 - 0.2 * (+-0) shows the sign
+        if special == "signed_zeros":
+            # x = -0: -0 - 0.2 * (+-0) and -0 - (-1) * (+-0) both show
+            # the reduce's zero sign (x = +0 would make every zero +0)
             x = torch.full((R, LANE), -0.0, dtype=dt, device=dev)
-            theta_eta = 0.2
+            theta_eta = -1.0 if form == "fedavg" else 0.2
+        elif form == "fedavg":
+            x, theta_eta = torch.zeros((R, LANE), dtype=dt, device=dev), -1.0
         else:
             x = torch.randn((R, LANE), generator=gen, device=dev).to(dt)
             theta_eta = 0.2
@@ -625,6 +771,18 @@ def robust_checks(dev, timer, bw, f32_rate, path_shapes):
                     extra += 1
                     if timed or not row["ok"]:
                         log(f"  {_fmt(row)}")
+    # signed zeros at the register network's sizes: a zero result must
+    # carry the stable order's sign (the network is not stable; the
+    # reduce picks each target's zero in DPU order)
+    for n in (5, 25, 64):
+        for dt in (f32, bf16):
+            for mode, k in (("median", 0),
+                            ("trimmed_mean", ops.trim_count(n, 0.2))):
+                for form in ("eq11", "fedavg"):
+                    row = case(n, 40, dt, mode, k, form, 0,
+                               special="signed_zeros")
+                    extra += 1
+                    log(f"  {_fmt(row)}")
     for n in (5, 20, 25):
         for dt in (f32, bf16):
             for mode, k in (("median", 0),
@@ -1335,6 +1493,287 @@ def reference_check(dev, world):
     return err
 
 
+# ------------------------------------------------------- phase 7: cefl --
+
+# The front door's presets on the card, through repro_torch.experiments.run:
+# (preset, overrides).  paper_table1 keeps its width and network and is cut
+# to 4 rounds and one seed (rounds 0 and 3 re-solve: two SCA solves).
+CEFL_RUNS = [("paper_table1", {"engine.rounds": 4, "seeds": (0,)}),
+             ("quickstart", {})]
+
+
+def drive_cefl_path(dev, runs=CEFL_RUNS):
+    """``CEFL_RUNS`` through ``repro_torch.experiments.run`` on ``dev``:
+    the ``cefl`` strategy's SCA solve and aggregator enumeration on the
+    card each re-solve round.  Per round it times the host plan (split
+    into the SCA solve, ``select_aggregator`` and the rest: the scenario
+    tick, the rounding and the offloading split), the device round and
+    the constants estimation, reads the solver's outer and primal-dual
+    iteration counts, and checks: the plan validates, the aggregation
+    point is one of the S DCs, and the round launched ``fedprox_accum``
+    gamma times per DPU group and ``nova_aggregate`` once, as phase 2's
+    rounds do.  The counters are set to 0 just before the runs and read
+    just after.  Returns the launch counts, the launch shapes, the
+    per-round records and the contexts."""
+    from repro_torch import experiments
+    from repro_torch.core.engine import Engine, dpu_groups, live_dpus
+    from repro_torch.experiments import build
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.plane import as_plane
+    from repro_torch.solver import sca
+
+    calls = {"solve": [], "select": [], "estimate": []}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            calls[name].append((time.perf_counter() - t0, out))
+            return out
+        return wrapper
+
+    cur, records = {}, []
+    shapes = {"fedprox_accum": Counter(), "nova_aggregate": Counter()}
+    real = {"solve": sca.solve, "select": sca.select_aggregator,
+            "estimate": build.estimate_constants,
+            "begin": Engine.begin_round, "execute": Engine.execute_round}
+
+    def begin_round(self, state, ues):
+        cur.clear()
+        cur.update(n_solve=len(calls["solve"]),
+                   n_select=len(calls["select"]), before=dict(ops.LAUNCHES))
+        t0 = time.perf_counter()
+        staged = real["begin"](self, state, ues)
+        cur["plan_s"] = time.perf_counter() - t0
+        groups = dpu_groups(staged.plan, live_dpus(staged.datasets))
+        R = as_plane(state.params).data.shape[0]
+        cur["want"] = dict.fromkeys(ops.LAUNCHES, 0)
+        cur["want"].update(fedprox_accum=sum(g for g, _m, _b in groups),
+                           nova_aggregate=1)
+        for (gamma, _m, _b), idxs in groups.items():
+            shapes["fedprox_accum"][(len(idxs), R, "shared")] += gamma
+        shapes["nova_aggregate"][(len(live_dpus(staged.datasets)), R)] += 1
+        cur["groups"] = [len(v) for v in groups.values()]
+        cur["net"] = staged.net_t
+        return staged
+
+    def execute_round(self, state, staged):
+        t0 = time.perf_counter()
+        out = real["execute"](self, state, staged)
+        torch.cuda.synchronize()
+        cur["device_round_s"] = time.perf_counter() - t0
+        return out
+
+    def on_round(rep, name):
+        got = {k: ops.LAUNCHES[k] - cur["before"][k] for k in ops.LAUNCHES}
+        if got != cur["want"]:
+            raise AssertionError(f"cefl {name} round {rep.round}: launches "
+                                 f"{got} != {cur['want']}")
+        rep.plan.validate(cur["net"])
+        S = cur["net"].cfg.num_dc
+        I_s = rep.plan.I_s.numpy()
+        if not (0 <= rep.aggregator < S and I_s.sum() == 1
+                and I_s[rep.aggregator] == 1):
+            raise AssertionError(f"cefl {name} round {rep.round}: "
+                                 f"aggregator {rep.aggregator} of {S} DCs")
+        solves = calls["solve"][cur["n_solve"]:]
+        selects = calls["select"][cur["n_select"]:]
+        solve_s = sum(t for t, _ in solves)
+        select_s = sum(t for t, _ in selects)
+        rec = {"experiment": name, "round": rep.round,
+               "solved": bool(solves), "plan_s": cur["plan_s"],
+               "sca_solve_s": solve_s, "select_aggregator_s": select_s,
+               "plan_rest_s": cur["plan_s"] - solve_s - select_s,
+               "outer_iterations": [r.iterations for _, r in solves],
+               "pd_iterations": [r.pd_iterations for _, r in solves],
+               "device_round_s": cur["device_round_s"],
+               "wall_s": rep.wall_time, "loss": rep.loss, "acc": rep.acc,
+               "aggregator": rep.aggregator, "energy_J": rep.energy,
+               "delay_s": rep.delay, "dc_points": rep.dc_points,
+               "groups": cur["groups"], "launches": got}
+        records.append(rec)
+        log(f"  cefl {name:<12} round {rep.round}: plan "
+            f"{rec['plan_s']:.3f} s (SCA solve {solve_s:.3f}, "
+            f"select_aggregator {select_s:.3f}, rest "
+            f"{rec['plan_rest_s']:.3f}; outer iterations "
+            f"{rec['outer_iterations']}, primal-dual {rec['pd_iterations']})"
+            f"  device round {rec['device_round_s']:.3f} s  loss "
+            f"{rep.loss:.4f}  acc {rep.acc:.3f}  aggregator "
+            f"DC{rep.aggregator}  energy {rep.energy:.2f} J  delay "
+            f"{rep.delay:.3f} s  groups {rec['groups']}")
+
+    results, contexts, estimate_s = {}, {}, {}
+    sca.solve = timed("solve", real["solve"])
+    sca.select_aggregator = timed("select", real["select"])
+    build.estimate_constants = timed("estimate", real["estimate"])
+    Engine.begin_round, Engine.execute_round = begin_round, execute_round
+    try:
+        experiments.clear_context_cache()
+        specs = [experiments.get_experiment(name).override(**over)
+                 for name, over in runs]
+        for spec in specs:                    # built (and estimated) first
+            n_est = len(calls["estimate"])
+            contexts[spec.name] = experiments.build_context(spec,
+                                                            device=dev)
+            est = calls["estimate"][n_est:]
+            if est:
+                estimate_s[spec.name] = est[0][0]
+            log(f"  {spec.name}: context built on the card; constants "
+                + (f"estimated in {est[0][0]:.3f} s (L {est[0][1].L:.3f}, "
+                   f"zeta1 {est[0][1].zeta1:.3f}, zeta2 "
+                   f"{est[0][1].zeta2:.3f})" if est else "fixed"))
+        torch.cuda.synchronize()
+        ops.reset_launches()                  # counts to 0: the path
+        for spec in specs:
+            results[spec.name] = experiments.run(
+                spec, device=dev,
+                callbacks=(lambda rep, n=spec.name: on_round(rep, n),))
+        launches = dict(ops.LAUNCHES)         # read just after
+    finally:
+        sca.solve, sca.select_aggregator = real["solve"], real["select"]
+        build.estimate_constants = real["estimate"]
+        Engine.begin_round = real["begin"]
+        Engine.execute_round = real["execute"]
+    log(f"  launches {launches}")
+    for name in shapes:
+        if launches[name] != sum(shapes[name].values()) or \
+                launches[name] == 0:
+            raise AssertionError(f"kernel {name}: {launches[name]} launches "
+                                 "on the cefl path")
+    for spec in specs:
+        res = results[spec.name]
+        solved = [r for r in records
+                  if r["experiment"] == spec.name and r["solved"]]
+        want = len(range(0, spec.engine.rounds,
+                         spec.engine.reoptimize_every))
+        if len(res) != spec.engine.rounds or len(solved) != want:
+            raise AssertionError(f"cefl {spec.name}: {len(res)} rounds, "
+                                 f"{len(solved)} solves (want {want})")
+        if not all(np.isfinite(r.loss) for r in res.reports):
+            raise AssertionError(f"cefl {spec.name}: a loss is not finite")
+        if not res.final.acc > 0.1:
+            raise AssertionError(f"cefl {spec.name}: final accuracy "
+                                 f"{res.final.acc} is not above chance")
+    return launches, shapes, records, contexts, estimate_s
+
+
+def _parity(name, got, want, net, D_bar):
+    """``tests/test_solver_diff.py``'s bar between two SCA results: the
+    objective history within 1e-4 relative, identical rounded indicators,
+    relaxed decisions within 5e-3 of their scale, the rounded plans'
+    constraint residuals within 1e-3 of their scale and the violation
+    history within 1e-2.  Returns the largest relative objective error."""
+    from repro_torch.solver import constraints as K
+    from repro_torch.solver.variables import NetView
+
+    def cpu(w):
+        return {k: v.detach().cpu() for k, v in w.items()}
+
+    gh = np.asarray(got.objective_history)
+    wh = np.asarray(want.objective_history)
+    if gh.shape != wh.shape:
+        raise AssertionError(f"{name}: {len(gh)} vs {len(wh)} iterates")
+    np.testing.assert_allclose(gh, wh, rtol=1e-4, err_msg=name)
+    g, w = cpu(got.w), cpu(want.w)
+    gr, wr = cpu(got.w_rounded), cpu(want.w_rounded)
+    for k in ("I_s", "I_nb", "I_bn"):
+        if not torch.equal(gr[k], wr[k]):
+            raise AssertionError(f"{name}: rounded {k} differs")
+    for k in ("rho_nb", "rho_bs", "f_n", "z_s", "gamma", "m", "R_bs"):
+        scale = max(1.0, float(w[k].abs().max()))
+        np.testing.assert_allclose(g[k].numpy(), w[k].numpy(),
+                                   atol=5e-3 * scale, err_msg=f"{name} {k}")
+    nv = NetView.from_network(net)
+    D = torch.as_tensor(D_bar, dtype=torch.float32)
+    vg = K.constraint_vector(gr, nv, D).numpy()
+    vw = K.constraint_vector(wr, nv, D).numpy()
+    np.testing.assert_allclose(vg, vw, atol=1e-3 * max(
+        1.0, float(np.abs(vw).max())), err_msg=name)
+    np.testing.assert_allclose(got.violation_history,
+                               want.violation_history, atol=1e-2,
+                               err_msg=name)
+    return float(np.max(np.abs(gh - wh) / np.abs(wh)))
+
+
+def cefl_solve_check(dev, ctx):
+    """One paper-width SCA solve (``ctx``'s 20/10/5 network and estimated
+    constants, the first round's arrivals, ``solver_outer`` outer steps,
+    the default Algorithm-2 hyper-parameters), centralized and
+    distributed, on the card against the same solve on the CPU, to
+    ``tests/test_solver_diff.py``'s bar; then one more centralized card
+    solve under ``torch.profiler`` (device busy share; the launches it
+    sees are a lower bound: the profiler drops records on this card).
+    Returns a summary dict."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.solver import sca
+
+    D_bar = np.array([len(u.step()["y"]) for u in ctx.make_ues(0)], float)
+    outer = ctx.spec.engine.solver_outer
+    out = {}
+    for distributed in (False, True):
+        res, secs = {}, {}
+        for label, where in (("cpu", torch.device("cpu")), ("card", dev)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[label] = sca.solve(
+                ctx.net, torch.as_tensor(D_bar, dtype=torch.float32,
+                                         device=where), ctx.consts, ctx.ow,
+                max_outer=outer, distributed=distributed)
+            torch.cuda.synchronize()
+            secs[label] = time.perf_counter() - t0
+        if res["card"].w["rho_nb"].device.type != dev.type:
+            raise AssertionError("the card solve left the card")
+        form = "distributed" if distributed else "centralized"
+        err = _parity(f"SCA solve ({form})", res["card"], res["cpu"],
+                      ctx.net, D_bar)
+        out[form] = {"card_s": secs["card"], "cpu_s": secs["cpu"],
+                     "objective_max_rel_err": err,
+                     "outer_iterations": res["card"].iterations,
+                     "pd_iterations": res["card"].pd_iterations,
+                     "objective_history": res["card"].objective_history}
+        log(f"  paper-width SCA solve, {form}: card {secs['card']:.3f} s, "
+            f"CPU {secs['cpu']:.3f} s, objective max rel err {err:.2e}, "
+            f"outer {res['card'].iterations}, primal-dual "
+            f"{res['card'].pd_iterations}; rounded plans identical")
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    D = torch.as_tensor(D_bar, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sca.solve(ctx.net, D, ctx.consts, ctx.ow, max_outer=outer,
+                  distributed=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    busy_us = sum(device_us(e) for e in events)
+    seen = sum(e.count for e in events)
+    top = sorted(events, key=lambda e: -device_us(e))[:8]
+    out["profile"] = {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
+                      "busy_share": busy_us / 1e6 / wall,
+                      "launches_seen_lower_bound": seen,
+                      "top": [{"name": e.key, "calls": e.count,
+                               "device_ms": device_us(e) / 1e3}
+                              for e in top]}
+    log(f"  profiled centralized solve: wall {wall * 1e3:.1f} ms, device "
+        f"busy {busy_us / 1e3:.2f} ms ({100 * busy_us / 1e6 / wall:.2f} % "
+        f"of wall), {seen} kernel launches seen (a lower bound: the "
+        f"profiler drops records on this card)")
+    for e in top[:5]:
+        log(f"    {device_us(e) / 1e3:9.3f} ms  {e.count:5d}x  "
+            f"{e.key[:70]}")
+    return out
+
+
 # ------------------------------------------------------ phase 6: serve --
 
 SERVE_ARCH = "starcoder2-15b"
@@ -1830,14 +2269,22 @@ def main() -> int:
     s_launches, s_shapes, s_records, s_profile, s_init = drive_serve_path(
         dev)
 
+    log("phase 7: cefl through the front door (repro_torch.experiments.run):"
+        " paper_table1 at paper width cut to 4 rounds and one seed, "
+        "quickstart whole (8 rounds)")
+    c_launches, c_shapes, c_records, c_contexts, c_estimate = \
+        drive_cefl_path(dev)
+    c_check = cefl_solve_check(dev, c_contexts["paper_table1"])
+
     log(f"phase 4: kernels vs plain versions at the paths' shapes and extra "
         f"cases ({smi})")
     timer = Timer(dev)
     # each kernel at every shape any path launched it with
     checked = {"fedprox_accum": shapes["fedprox_accum"]
-               + t_shapes["fedprox_accum"] + m_shapes["fedprox_accum"],
+               + t_shapes["fedprox_accum"] + m_shapes["fedprox_accum"]
+               + c_shapes["fedprox_accum"],
                "nova_aggregate": shapes["nova_aggregate"]
-               + a_shapes["nova_aggregate"]}
+               + a_shapes["nova_aggregate"] + c_shapes["nova_aggregate"]}
     rows, main_rows = kernel_checks(dev, timer, bw, f32_rate, checked)
     r_rows, main_rows["robust_aggregate"] = robust_checks(
         dev, timer, bw, f32_rate, t_shapes["robust_aggregate"])
@@ -1853,6 +2300,10 @@ def main() -> int:
     if bad:
         raise AssertionError(f"{len(bad)} kernel case(s) disagree with the "
                              f"plain version: {bad}")
+    log("  the main rows timed again as runs of 200 launches between one "
+        "event pair (inputs rotated over copies past 2 x L2), beside the "
+        "per-call timer's floor")
+    run_ms, floor = run_column(dev, main_rows, timer, RunTimer())
     del timer
 
     log("phase 5: one fused round and one mesh round, card vs CPU; "
@@ -1868,7 +2319,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": REPLACES[name][0],
             "replaces": REPLACES[name][1],
             "launches": sum(c.get(name, 0) for c in (
-                launches, t_launches, m_launches, a_launches, s_launches)),
+                launches, t_launches, m_launches, a_launches, s_launches,
+                c_launches)),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1898,6 +2350,11 @@ def main() -> int:
         "serve_launch_shapes": [list(key) + [n]
                                 for key, n in sorted(s_shapes.items())],
         "serve_check_max_abs_err": serve_err,
+        "kernel_run_ms": run_ms, "timer_floor": floor,
+        "cefl_rounds": c_records, "cefl_launches": c_launches,
+        "cefl_launch_shapes": {k: [list(key) + [n] for key, n in c.items()]
+                               for k, c in c_shapes.items()},
+        "cefl_estimate_s": c_estimate, "cefl_solve_check": c_check,
         "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

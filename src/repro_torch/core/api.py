@@ -41,6 +41,12 @@ class EngineOptions:
     scenario: str = "static"        # environment dynamics (any name in
                                     # repro_torch.scenario.base's registry)
     reoptimize_every: int = 1
+    solver_outer: int = 4           # SCA outer iterations of ``cefl``
+    distributed_solver: bool = False   # centralized is faster for sims
+    solver_backend: str = "jit"     # the one solver (the name of the
+                                    # reference's batched backend); "ref"
+                                    # raises: the numpy oracle stays in
+                                    # the JAX package
     gamma_default: int = 2
     m_default: float = 0.5
     rate_jitter: float = 0.15
@@ -79,11 +85,12 @@ class RoundPlan:
 
     @classmethod
     def from_w(cls, w: Dict) -> "RoundPlan":
-        """Build from a decision dict (extra keys ignored)."""
+        """Build from a decision dict (extra keys ignored); leaves on
+        another device (the ``cefl`` solve's) are copied to the CPU."""
         missing = [k for k in PLAN_KEYS if k not in w]
         if missing:
             raise KeyError(f"decision dict missing keys {missing}")
-        return cls(**{k: torch.as_tensor(w[k], dtype=torch.float32)
+        return cls(**{k: torch.as_tensor(w[k], dtype=torch.float32).cpu()
                       for k in PLAN_KEYS})
 
     def to_w(self) -> Dict:
@@ -220,6 +227,8 @@ class DecisionContext:
     ow: Any                           # solver.objective.ObjectiveWeights
     opts: EngineOptions
     prev_plan: Optional[RoundPlan] = None   # warm start
+    device: Any = None                # the engine's device: where ``cefl``
+                                      # solves (None: D_bar's device)
 
 
 @runtime_checkable

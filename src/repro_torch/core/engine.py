@@ -23,10 +23,12 @@ Each global round t (paper Secs. II+IV-VI):
 Where things live.  The control plane stays on the host: the plan, the
 ``(N, B)``-sized network arrays and the delay/energy math are float32 CPU
 tensors (the JAX package pulls them to numpy every round too), and the
-offloading split runs in numpy.  Everything sized by the parameters or
-the data lives on the engine's ``device``: the parameter planes, the
-staged data stacks, the mini-batch indices, the gradients, the kernels'
-work and the eval pass.
+offloading split runs in numpy.  The ``cefl`` strategy's SCA solve is the
+exception: it runs on the engine's ``device``, as the JAX package's jitted
+solve runs on its default device, and hands back a CPU plan.  Everything
+sized by the parameters or the data lives on the engine's ``device``: the
+parameter planes, the staged data stacks, the mini-batch indices, the
+gradients, the kernels' work and the eval pass.
 
 Randomness.  The numpy ``RandomState`` streams (scenario ticks, rates,
 offloading) match the JAX package bit for bit; the mini-batch draws and
@@ -512,13 +514,14 @@ class Engine:
     def __init__(self, net, strategy=None, *, consts, ow,
                  opts: Optional[EngineOptions] = None, scenario=None,
                  executor=None, callbacks: Sequence[RoundCallback] = (),
-                 device="cuda"):
+                 validate_plans: bool = True, device="cuda"):
         """``scenario``: a name from the scenario registry ("static",
         "byzantine:0.2", ...) or a Scenario instance; None takes
         ``opts.scenario``.  ``executor``: :class:`SimExecutor` (the
         default) or :class:`MeshExecutor`.  ``callbacks`` get each
         round's report; one returning True stops the run after that
-        round."""
+        round.  ``validate_plans``: check every decided plan's
+        feasibility (``RoundPlan.validate``)."""
         self.device = require_device(device)
         self.net = net
         self.opts = opts or EngineOptions()
@@ -528,16 +531,29 @@ class Engine:
             scenario if scenario is not None else self.opts.scenario)
         self.executor = executor if executor is not None else SimExecutor()
         self.callbacks: List[RoundCallback] = list(callbacks)
+        self.validate_plans = validate_plans
         self.consts = consts
         self.ow = ow
 
+    def on_round_end(self, callback: RoundCallback) -> RoundCallback:
+        """Register a callback (usable as a decorator).  Returning True
+        from a callback stops the run after the current round."""
+        self.callbacks.append(callback)
+        return callback
+
     def decide(self, net_t, D_bar, t: int,
                prev_plan: Optional[RoundPlan]) -> RoundPlan:
+        """The strategy's plan for round ``t``.  ``D_bar`` reaches the
+        strategy as a CPU tensor; ``cefl`` moves it to the engine's device
+        (``ctx.device``) and solves there."""
         ctx = DecisionContext(round=t, consts=self.consts, ow=self.ow,
-                              opts=self.opts, prev_plan=prev_plan)
+                              opts=self.opts, prev_plan=prev_plan,
+                              device=self.device)
         plan = self.strategy.decide(
             net_t, torch.as_tensor(D_bar, dtype=torch.float32), ctx)
-        return plan.validate(net_t)
+        if self.validate_plans:
+            plan.validate(net_t)
+        return plan
 
     # --- the round loop, exposed one round at a time -------------------
     #

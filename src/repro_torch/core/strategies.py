@@ -1,14 +1,17 @@
-"""Built-in decision strategies (paper Sec. VI-B baselines).  Counterpart of
-``repro.core.strategies``, registered under the same names:
+"""Built-in decision strategies (paper Sec. IV + VI-B baselines).
+Counterpart of ``repro.core.strategies``, registered under the same names:
 
+  cefl         — Algorithm 1 (SCA over problem P), warm-started from the
+                 previous round's plan, solved on the engine's device
   greedy_data  — datapoint-greedy floating aggregator (Sec. VI-B2)
   greedy_rate  — data-rate-greedy floating aggregator (eq. 100)
   fixed:<s>    — always aggregate at DC s
   fednova      — conventional FedL, FedNova aggregation (no offloading)
   fedavg       — conventional FedL, model averaging (no offloading)
 
-The network-aware ``cefl`` strategy (the SCA solver) is not ported yet;
-``get_strategy("cefl")`` raises the registry's KeyError.
+The heuristic strategies decide on the CPU; ``cefl`` runs the SCA solve
+and the aggregator enumeration on ``ctx.device`` (the engine's), and its
+plan comes back to the CPU as every plan does.
 """
 from __future__ import annotations
 
@@ -17,9 +20,11 @@ import torch
 
 from repro_torch.core.api import DecisionContext, RoundPlan, \
     register_strategy
+from repro_torch.network.costs import as_f32
 from repro_torch.solver import greedy as greedy_mod
+from repro_torch.solver import sca
 from repro_torch.solver.objective import apply_required_deltas
-from repro_torch.solver.variables import round_indicators
+from repro_torch.solver.variables import NetView, one_hot, round_indicators
 
 
 def _heuristic_base(net, D_bar, opts):
@@ -28,6 +33,40 @@ def _heuristic_base(net, D_bar, opts):
     base["gamma"] = torch.full_like(base["gamma"], float(opts.gamma_default))
     base["m"] = torch.full_like(base["m"], opts.m_default)
     return base
+
+
+@register_strategy("cefl")
+class CEFLStrategy:
+    """Network-aware CE-FL: successive convex approximation over P."""
+    aggregation = "cefl"
+    proximal = True
+
+    def decide(self, net, D_bar, ctx: DecisionContext) -> RoundPlan:
+        opts = ctx.opts
+        dev = torch.device(ctx.device) if ctx.device is not None \
+            else as_f32(D_bar).device
+        D = as_f32(D_bar).to(dev)
+        # warm start from the previous plan.  Its indicators are rounded
+        # one-hots: mix them back toward the simplex interior so the
+        # relaxed SCA iterate isn't pinned at the previous vertex when the
+        # network has moved on.
+        w0 = None
+        if ctx.prev_plan is not None:
+            w0 = {k: v.to(dev) for k, v in ctx.prev_plan.to_w().items()}
+            for k, ax in (("I_s", 0), ("I_nb", 1), ("I_bn", 0)):
+                x = w0[k]
+                w0[k] = 0.5 * x + 0.5 / x.shape[ax]
+        res = sca.solve(net, D, ctx.consts, ctx.ow,
+                        max_outer=opts.solver_outer,
+                        distributed=opts.distributed_solver, w0=w0,
+                        backend=opts.solver_backend)
+        # floating aggregation point: exact enumeration over the rounded
+        # plan (argmax of a near-uniform relaxed I_s is noise)
+        w = dict(res.w_rounded)
+        s = sca.select_aggregator(w, net, D, ctx.consts, ctx.ow)
+        w["I_s"] = one_hot(s, w["I_s"].shape[0], device=dev)
+        w = apply_required_deltas(w, NetView.from_network(net, dev), D)
+        return RoundPlan.from_w(w)
 
 
 class _GreedyBase:

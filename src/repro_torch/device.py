@@ -15,3 +15,8 @@ def require_device(device="cuda") -> torch.device:
             "torch.cuda.is_available() is False; pass device='cpu' to run "
             "on the CPU")
     return dev
+
+
+def data_on(data: dict, device) -> dict:
+    """A dict of arrays (numpy or tensors) as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device) for k, v in data.items()}

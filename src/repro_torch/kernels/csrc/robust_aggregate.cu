@@ -56,8 +56,12 @@
 // divides, as the plain version's mean does; the update is __fmul_rn then
 // __fsub_rn, so nvcc cannot contract it into an FMA.  A median takes the
 // same element(s) as the plain version's stable sort, so it stays bitwise
-// equal in f32 (-0 and +0 included); the trimmed mean differs only by
-// the summation order.
+// equal in f32, -0 and +0 included: the network, which is not stable,
+// gives each zero at a target position the sign of the stable order's
+// zero there (robust_sort.cuh), and the select ranks by (key, DPU).  A
+// trimmed mean of two or more values sums from +0, as torch.mean does, so
+// an all-zero kept set gives +0 in both; otherwise it differs only by the
+// summation order.
 
 #include "common.cuh"
 #include "robust_sort.cuh"
@@ -73,7 +77,8 @@ template <typename T, int NMAX>
 __global__ void __launch_bounds__(kThreads)
     robust_aggregate_kernel(const T* __restrict__ x, const T* __restrict__ d,
                             T* __restrict__ out, int64_t plane_elems, int n,
-                            int lo, int hi, float theta_eta) {
+                            int lo, int hi, bool from_zero,
+                            float theta_eta) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        c < plane_elems; c += stride) {
@@ -81,7 +86,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < NMAX; ++i)
       v[i] = i < n ? to_f32(d[(int64_t)i * plane_elems + c]) : 0.0f;
-    const float red = robust::reduce<NMAX>(v, n, lo, hi);
+    const float red = robust::reduce<NMAX>(v, n, lo, hi, from_zero);
     out[c] = from_f32<T>(
         __fsub_rn(to_f32(x[c]), __fmul_rn(theta_eta, red)));
   }
@@ -89,12 +94,12 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int NMAX>
 int run(const void* x, const void* d, void* out, int64_t plane_elems, int n,
-        int lo, int hi, float theta_eta, void* stream) {
+        int lo, int hi, bool from_zero, float theta_eta, void* stream) {
   const int64_t blocks = plane::grid_blocks(plane_elems, kThreads, 8);
   robust_aggregate_kernel<T, NMAX>
       <<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
           (const T*)x, (const T*)d, (T*)out, plane_elems, n, lo, hi,
-          theta_eta);
+          from_zero, theta_eta);
   return (int)cudaGetLastError();
 }
 
@@ -198,7 +203,8 @@ template <typename T, bool kStaged, int kBlocks>
 __global__ void __launch_bounds__(kSelThreads, kBlocks)
     robust_select_kernel(const T* __restrict__ x, const T* __restrict__ d,
                          T* __restrict__ out, int64_t plane_elems, int n,
-                         int lo, int hi, float theta_eta) {
+                         int lo, int hi, bool from_zero,
+                         float theta_eta) {
   // bf16 keys end in 16 bits that the sign alone decides: two digits
   // tell them apart
   constexpr int kLow = sizeof(T) == 2 ? 16 : 0;
@@ -211,7 +217,6 @@ __global__ void __launch_bounds__(kSelThreads, kBlocks)
   __shared__ uint32_t bkey_s[2][kTile];     // the boundaries (key, DPU)
   __shared__ int bidx_s[2][kTile];
   __shared__ float psum_s[kRuns][kTile];
-  __shared__ int pany_s[kRuns][kTile];
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int c = tid % kTile;       // this thread's coordinate
   const int run = tid / kTile;     // and its run of DPUs
@@ -457,9 +462,11 @@ __global__ void __launch_bounds__(kSelThreads, kBlocks)
   };
   const int64_t e = c0 + c;
   if (hi - lo <= 2) {
-    // the median: the one or two boundary values (in sorted order)
+    // the median (or a trimmed mean of one or two): the boundary values,
+    // in sorted order; a mean's sum starts at +0 (``from_zero``)
     if (tid >= kTile) return;
     float red = key_value(raw_key(bidx_s[0][c]));
+    if (from_zero) red = 0.0f + red;
     if (hi - lo == 2) red = (red + key_value(raw_key(bidx_s[1][c]))) / 2.0f;
     out[e] = from_f32<T>(__fsub_rn(to_f32(x[e]), __fmul_rn(theta_eta, red)));
     return;
@@ -467,45 +474,35 @@ __global__ void __launch_bounds__(kSelThreads, kBlocks)
 
   // 3. sum, per coordinate in DPU order, the values from (key, DPU) of
   // rank lo to that of rank hi - 1: thread (run, c) sums its run of DPUs,
-  // and the 32 runs' sums are added in order
+  // and the 32 runs' sums are added in order, every sum from +0 (only a
+  // trimmed mean of three or more values comes here)
   // (key, DPU) as one number: the stable order is its order
   const uint64_t first = (uint64_t)bkey_s[0][c] << 32 | (uint32_t)bidx_s[0][c];
   const uint64_t last = (uint64_t)bkey_s[1][c] << 32 | (uint32_t)bidx_s[1][c];
   const int j_begin = (int)((int64_t)n * run / kRuns);
   const int j_end = (int)((int64_t)n * (run + 1) / kRuns);
   float sum = 0.0f;
-  bool any = false;
 #pragma unroll 4
   for (int j = j_begin; j < j_end; ++j) {
     const uint32_t raw = raw_key(j);
     const uint64_t kj =
         (uint64_t)(tie_zero(raw) & kKeyMask) << 32 | (uint32_t)j;
-    if (first <= kj && kj <= last) {
-      const float v = key_value(raw);
-      sum = any ? sum + v : v;
-      any = true;
-    }
+    if (first <= kj && kj <= last) sum += key_value(raw);
   }
   psum_s[run][c] = sum;
-  pany_s[run][c] = any;
   __syncthreads();
   if (tid >= kTile) return;
   sum = 0.0f;
-  any = false;
 #pragma unroll 8
-  for (int r = 0; r < kRuns; ++r) {
-    if (pany_s[r][c]) {
-      sum = any ? sum + psum_s[r][c] : psum_s[r][c];
-      any = true;
-    }
-  }
+  for (int r = 0; r < kRuns; ++r) sum += psum_s[r][c];
   const float red = sum / (float)(hi - lo);
   out[e] = from_f32<T>(__fsub_rn(to_f32(x[e]), __fmul_rn(theta_eta, red)));
 }
 
 template <typename T, int kBlocks>
 int run_select(const void* x, const void* d, void* out, int64_t plane_elems,
-               int n, int lo, int hi, float theta_eta, void* stream) {
+               int n, int lo, int hi, bool from_zero, float theta_eta,
+               void* stream) {
   const int64_t blocks = plane_elems / kTile;  // plane_elems % 8192 == 0
   const size_t staged =
       kHistBytes + (size_t)n * kKeyStride * sizeof(uint32_t);
@@ -527,29 +524,37 @@ int run_select(const void* x, const void* d, void* out, int64_t plane_elems,
                            (int)bytes);
   if (e != cudaSuccess) return (int)e;
   kernel<<<(unsigned)blocks, kSelThreads, bytes, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)d, (T*)out, plane_elems, n, lo, hi, theta_eta);
+      (const T*)x, (const T*)d, (T*)out, plane_elems, n, lo, hi, from_zero,
+      theta_eta);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, const void* d, void* out, int64_t plane_elems,
-           int n, int lo, int hi, float theta_eta, int network_max,
-           void* stream) {
+           int n, int lo, int hi, int median, float theta_eta,
+           int network_max, void* stream) {
   if (n < 1 || !(0 <= lo && lo < hi && hi <= n))
     return (int)cudaErrorInvalidValue;
+  // a trimmed mean of two or more values sums from +0 (torch.mean's
+  // reduction, so a kept set of zeros gives +0); a median, or a trimmed
+  // mean of one value, is read (its zero keeps its sign)
+  const bool z = !median && hi - lo >= 2;
   if (n > network_max || n > 64)
     return n <= kSmallStack
-               ? run_select<T, 3>(x, d, out, plane_elems, n, lo, hi,
+               ? run_select<T, 3>(x, d, out, plane_elems, n, lo, hi, z,
                                   theta_eta, stream)
-               : run_select<T, 2>(x, d, out, plane_elems, n, lo, hi,
+               : run_select<T, 2>(x, d, out, plane_elems, n, lo, hi, z,
                                   theta_eta, stream);
   if (n <= 8)
-    return run<T, 8>(x, d, out, plane_elems, n, lo, hi, theta_eta, stream);
+    return run<T, 8>(x, d, out, plane_elems, n, lo, hi, z, theta_eta,
+                     stream);
   if (n <= 16)
-    return run<T, 16>(x, d, out, plane_elems, n, lo, hi, theta_eta, stream);
+    return run<T, 16>(x, d, out, plane_elems, n, lo, hi, z, theta_eta,
+                      stream);
   if (n <= 32)
-    return run<T, 32>(x, d, out, plane_elems, n, lo, hi, theta_eta, stream);
-  return run<T, 64>(x, d, out, plane_elems, n, lo, hi, theta_eta, stream);
+    return run<T, 32>(x, d, out, plane_elems, n, lo, hi, z, theta_eta,
+                      stream);
+  return run<T, 64>(x, d, out, plane_elems, n, lo, hi, z, theta_eta, stream);
 }
 
 }  // namespace
@@ -558,22 +563,25 @@ extern "C" {
 
 // plane_elems = R * 1024; x, d, out contiguous.  The reduce averages the
 // sorted positions [lo, hi) of each coordinate's n values: [k, n - k) for
-// the k-trimmed mean, the middle one or two for the median.  n >= 1.
+// the k-trimmed mean, the middle one or two for the median (``median``
+// nonzero).  n >= 1.
 // Stacks of at most network_max DPUs (and at most 64) take the register
 // network, larger ones the radix select.  Returns the CUDA error code of
 // the launch (0 = launched).
 int robust_aggregate_f32(const void* x, const void* d, void* out,
                          int64_t plane_elems, int n, int lo, int hi,
-                         float theta_eta, int network_max, void* stream) {
-  return launch<float>(x, d, out, plane_elems, n, lo, hi, theta_eta,
+                         int median, float theta_eta, int network_max,
+                         void* stream) {
+  return launch<float>(x, d, out, plane_elems, n, lo, hi, median, theta_eta,
                        network_max, stream);
 }
 
 int robust_aggregate_bf16(const void* x, const void* d, void* out,
                           int64_t plane_elems, int n, int lo, int hi,
-                          float theta_eta, int network_max, void* stream) {
-  return launch<__nv_bfloat16>(x, d, out, plane_elems, n, lo, hi, theta_eta,
-                               network_max, stream);
+                          int median, float theta_eta, int network_max,
+                          void* stream) {
+  return launch<__nv_bfloat16>(x, d, out, plane_elems, n, lo, hi, median,
+                               theta_eta, network_max, stream);
 }
 
 const char* robust_aggregate_error_string(int err) {

@@ -40,8 +40,11 @@ def robust_reduce_ref(d_stack, *, k: int = 0, median: bool = False):
     values for even n) or the k-trimmed mean (drop the k smallest and k
     largest per coordinate, which needs 0 <= 2k < n).  NaN sorts last, as
     in ``torch.sort``; the sort is stable, as ``jnp.sort`` is, so equal
-    values (-0 and +0) keep DPU order.  Unweighted by design: dataset-size
-    weights are the lever a byzantine client inflates."""
+    values (-0 and +0) keep DPU order.  A trimmed mean of one value is
+    that value (its zero keeps its sign, as ``jnp.mean`` over one element
+    leaves it); of more, ``torch.mean``, whose sum of zeros is +0.
+    Unweighted by design: dataset-size weights are the lever a byzantine
+    client inflates."""
     d = torch.sort(d_stack.float(), dim=0, stable=True).values
     n = d.shape[0]
     if median:
@@ -49,6 +52,8 @@ def robust_reduce_ref(d_stack, *, k: int = 0, median: bool = False):
         return d[mid] if n % 2 else 0.5 * (d[mid - 1] + d[mid])
     if not 0 <= 2 * k < n:
         raise ValueError(f"trim k={k} needs 0 <= 2k < n={n}")
+    if n - 2 * k == 1:
+        return d[k]
     return torch.mean(d[k:n - k], dim=0)
 
 

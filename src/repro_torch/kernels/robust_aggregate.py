@@ -24,8 +24,8 @@ _SYMBOL = {torch.float32: "robust_aggregate_f32",
            torch.bfloat16: "robust_aggregate_bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_int, ctypes.c_void_p]
 NMAX = (8, 16, 32, 64)   # the register network's compile-time sizes
 # Stacks of up to NETWORK_MAX DPUs take the register network, larger ones
 # the radix select: the crossover measured on the card (PERF.md)
@@ -81,7 +81,8 @@ def _launch(x, d_stack, theta_eta, k: int, median: bool, network_max: int):
     with torch.cuda.device(x.device):
         fn = cuda.entry("robust_aggregate", _SYMBOL[x.dtype], _ARGTYPES)
         err = fn(x.data_ptr(), d_stack.data_ptr(), out.data_ptr(),
-                 R * LANE, n, lo, hi, float(theta_eta), int(network_max),
+                 R * LANE, n, lo, hi, int(median), float(theta_eta),
+                 int(network_max),
                  torch.cuda.current_stream(x.device).cuda_stream)
     cuda.check("robust_aggregate", err)
     cuda.LAUNCHES["robust_aggregate"] += 1

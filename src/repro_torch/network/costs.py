@@ -1,7 +1,9 @@
 """Delay / energy models (paper eqs. 16-40).  Counterpart of
-``repro.network.costs``, in float32 torch ops so a solver can later take
-gradients through them.  The decision dict and the network arrays are
-small host-side tensors; the results are float32 tensors on their device.
+``repro.network.costs``, in float32 torch ops that the SCA solver takes
+gradients through.  Every tensor is made on the device of the inputs:
+the engine's accounting passes numpy arrays and CPU tensors, the solver
+a :class:`~repro_torch.solver.variables.NetView` and a decision dict on
+its device.
 
 Decision variables (dict w):
   rho_nb (N,B), rho_bs (B,S), f_n (N,), z_s (S,), gamma (N+S,), m (N+S,),
@@ -12,13 +14,18 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 EPS = 1e-9
 
 
 def as_f32(x) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32)
+    """A float32 tensor of ``x``: a tensor keeps its device, anything else
+    (numpy arrays, Python numbers) lands on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device="cpu")
 
 
 def data_configuration(w, D_bar):
@@ -63,7 +70,7 @@ def network_costs(w: Dict, net, D_bar) -> Dict:
 
     # --- DC<->DC (eq. 24)
     d_ss_M = cfg.beta_model / (R_ss + EPS)
-    d_ss_M = d_ss_M * (1.0 - torch.eye(S))
+    d_ss_M = d_ss_M * (1.0 - torch.eye(S, device=R_ss.device))
     E_ss_M = d_ss_M * cfg.dc_dc_link_power
 
     # --- processing (eqs. 26-29)

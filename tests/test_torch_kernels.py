@@ -272,3 +272,26 @@ def test_normalize_weights_once():
     w = ops.normalize_weights([100, 300])
     assert w.dtype == torch.float32
     np.testing.assert_allclose(w.numpy(), [0.25, 0.75])
+
+
+def test_nova_aggregate_takes_any_number_of_dpus():
+    """The CUDA kernel streams its weights through shared memory in chunks
+    and takes any n, as the Pallas kernel and the plain version do: no
+    DPU cap is left in the wrappers.  On the CPU, 12,289 DPUs (past the
+    old 12,288) at R = 8 through the dispatch against the JAX ``"cpu"``
+    backend, to the module's f32 tolerance."""
+    assert not hasattr(tna, "MAX_DPUS")
+    n = 12289
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((8, LANE), generator=gen)
+    d = torch.randn((n, 8, LANE), generator=gen)
+    w = ops.normalize_weights(torch.rand(n, generator=gen).numpy() + 0.1)
+    got = ops.nova_aggregate_plane(x, d, w, 0.2)
+    want = jops.nova_aggregate_plane(jnp.asarray(x.numpy()),
+                                     jnp.asarray(d.numpy()),
+                                     jnp.asarray(w.numpy()), 0.2,
+                                     backend="cpu")
+    want = np.asarray(want)
+    atol = 2 * np.spacing(np.float32(np.abs(want).max()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=atol)
+    assert ops.LAUNCHES["nova_aggregate"] == 0

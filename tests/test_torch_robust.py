@@ -371,6 +371,123 @@ def test_sorting_network_sorts_by_the_zero_one_principle(nmax, n):
     assert cs.robust_operations(25, 15, 176) == 176 * 1024 * (2 * 140 + 17)
 
 
+# ------------------------------------------- the network's zero signs --
+
+def _signed_zero_stack(n, C, seed):
+    """Four DPUs in five send -0 or +0 (a coin per element), the fifth a
+    value of either sign, as ``chip_smoke.py``'s signed_zeros stacks."""
+    rng = np.random.RandomState(seed)
+    v = rng.choice(np.array([-0.0, 0.0], np.float32), size=(n, C))
+    vals = rng.choice(np.array([-1.5, 2.0], np.float32), size=(n, C))
+    keep = (np.arange(n) % 5 == 0)[:, None]
+    return np.where(keep, vals, v).astype(np.float32)
+
+
+def _network_model(v, lo, hi, from_zero, repaired):
+    """The register network of ``csrc/robust_sort.cuh`` on an (n, C) f32
+    stack: NaN and the pad slots n..NMAX-1 as +inf, then the
+    compare-exchanges of ``chip_smoke.network_pairs`` with fminf / fmaxf
+    ordering -0 below +0 (as IEEE minimum does), then the sum of sorted
+    positions [lo, hi) (from +0 when ``from_zero``, else from the first
+    value) over hi - lo.  ``repaired``: where the reduce reads values
+    rather than summing from +0, the zeros at sorted positions
+    [c, c + zeros) (c negatives) take the signs of the stack's zeros in
+    DPU order, as the kernel's reduce now reads them."""
+    n, C = v.shape
+    nmax = max(8, 1 << (n - 1).bit_length())
+    w = np.full((nmax, C), np.inf, np.float32)
+    w[:n] = np.where(np.isnan(v), np.inf, v)
+    nan_count = np.isnan(v).sum(axis=0)
+    for i, j in _chip_smoke().network_pairs(nmax):
+        a, b = w[i].copy(), w[j].copy()
+        a_first = (a < b) | ((a == b) & np.signbit(a))
+        w[i], w[j] = np.where(a_first, a, b), np.where(a_first, b, a)
+    w[np.arange(nmax)[:, None] >= n - nan_count] = np.nan
+    if repaired and not from_zero:
+        neg = (v < 0).sum(axis=0)
+        for col in range(C):
+            zeros = v[:, col][v[:, col] == 0]
+            w[neg[col]:neg[col] + len(zeros), col] = zeros
+    s = np.zeros(C, np.float32) if from_zero else w[lo].copy()
+    with np.errstate(invalid="ignore"):       # inf - inf, as on the card
+        for i in range(lo if from_zero else lo + 1, hi):
+            s = s + w[i]
+        return (s / np.float32(hi - lo)).astype(np.float32)
+
+
+def _stable_reduce(v, k, median):
+    return ref.robust_reduce_ref(torch.from_numpy(v), k=k,
+                                 median=median).numpy()
+
+
+@pytest.mark.parametrize("n", [5, 25, 64])
+def test_fmin_fmax_network_loses_the_stable_orders_zero_sign(n):
+    """The fault the kernel had: Batcher's network is not stable, and
+    with fminf / fmaxf the zero that lands at the median's position is
+    not the one the stable sort (the reference's ``jnp.sort``, the plain
+    version's ``torch.sort(stable=True)``) puts there.  On a signed_zeros
+    stack the values agree and some zero medians differ in sign."""
+    v = _signed_zero_stack(n, 4096, seed=n)
+    lo, hi = tra.sorted_range(n, 0, True)
+    got = _network_model(v, lo, hi, from_zero=False, repaired=False)
+    want = _stable_reduce(v, 0, True)
+    np.testing.assert_array_equal(got, want)        # equal as numbers
+    zero = want == 0
+    assert zero.sum() > 1000
+    assert np.any(np.signbit(got[zero]) != np.signbit(want[zero]))
+
+
+@pytest.mark.parametrize("kind", ["signed_zeros", "random", "nonfinite"])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 20, 25, 33, 64])
+def test_repaired_network_reduce_keeps_the_stable_orders_zeros(n, kind):
+    """The repaired reduce (the zeros at the target positions take their
+    signs in DPU order; a trimmed mean of two or more values sums from
+    +0, a median or a trimmed mean of one value is read) equals the plain
+    version bit for bit, zero signs included, for the median and the
+    trimmed means at k = 0, trim_count(n, 0.2) and (n-1)//2 (sorted in
+    the same order, summed in the same order here)."""
+    v = (_signed_zero_stack(n, 2048, seed=3 * n) if kind == "signed_zeros"
+         else _select_stack(kind, n, 2048, seed=5 * n))
+    for mode, k, m in _modes(n):
+        median = mode == "median"
+        lo, hi = tra.sorted_range(n, k, median)
+        from_zero = not median and hi - lo >= 2
+        got = _network_model(v, lo, hi, from_zero, repaired=True)
+        want = _stable_reduce(v, k, median)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        fin = ~np.isnan(want)
+        if median or m <= 2:
+            np.testing.assert_array_equal(got[fin].view(np.uint32),
+                                          want[fin].view(np.uint32))
+        else:    # torch.mean may add in another order: signs of zeros
+            zero = want == 0
+            np.testing.assert_array_equal(np.signbit(got[zero]),
+                                          np.signbit(want[zero]))
+            np.testing.assert_allclose(got[fin], want[fin], rtol=1e-6,
+                                       atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 25, 64, 65])
+def test_plain_reduce_zero_signs_equal_jax(n):
+    """The plain version's zero signs are the reference's on signed_zeros
+    stacks: the stable sort's zero for a median, +0 for a mean of two or
+    more values, the value itself for a trimmed mean of one."""
+    from repro.kernels.ref import robust_reduce_ref as jreduce
+    v = _signed_zero_stack(n, 1024, seed=11 * n)
+    for mode, k, m in _modes(n):
+        median = mode == "median"
+        want = np.asarray(jreduce(jnp.asarray(v), k=k, median=median))
+        got = _stable_reduce(v, k, median)
+        zero = want == 0
+        np.testing.assert_array_equal(np.signbit(got[zero]),
+                                      np.signbit(want[zero]))
+        if median or m == 1:
+            np.testing.assert_array_equal(got.view(np.uint32),
+                                          want.view(np.uint32))
+        else:    # XLA and torch add the m values in their own orders
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
 # ------------------------------------------- the radix select's logic --
 
 def _order_keys(v):
@@ -393,7 +510,8 @@ def _key_value(k):
         .view(np.float32)
 
 
-def _select_model(v, lo, hi, low=0, tile=16, runs=32, gather=64):
+def _select_model(v, lo, hi, low=0, tile=16, runs=32, gather=64,
+                  from_zero=False):
     """The kernel's radix select (``robust_select_kernel``) on an (n, C)
     f32 stack, block by block of ``tile`` coordinates, as the kernel runs
     it: digit passes from the top with one histogram while the two
@@ -404,7 +522,9 @@ def _select_model(v, lo, hi, low=0, tile=16, runs=32, gather=64):
     of its rank, in the stable order (key, DPU), among the keys whose
     decided bits equal its prefix, and the sum runs over ``runs`` runs of
     DPUs added in order, over the (key, DPU) from one boundary to the
-    other.  ``low``: the key bits left undecided (16 for bf16).  Returns
+    other, starting from +0 when ``from_zero`` (a trimmed mean of two or
+    more values) and from the first value otherwise.  ``low``: the key
+    bits left undecided (16 for bf16).  Returns
     the keys, the boundaries (key, DPU), their ranks within their bins
     (the boundary ties before each boundary, once the bin is one key
     value), the passes per block and the f32 reduce."""
@@ -479,9 +599,10 @@ def _select_model(v, lo, hi, low=0, tile=16, runs=32, gather=64):
             a = np.zeros(C, bool)
             for i in range(n * r // runs, n * (r + 1) // runs):
                 vi = _key_value(raw[i])
-                s = np.where(take[i], np.where(a, s + vi, vi), s)
+                s = np.where(take[i], np.where(a | from_zero, s + vi, vi), s)
                 a |= take[i]
-            total = np.where(a, np.where(anyv, total + s, s), total)
+            total = np.where(a, np.where(anyv | from_zero, total + s, s),
+                             total)
             anyv |= a
         red = total / np.float32(hi - lo)
     return {"raw": raw, "keys": keys, "bkey": bkey, "bidx": bidx,
@@ -532,7 +653,7 @@ def test_radix_select_model_matches_a_stable_sort(n, mode, k, kind):
     lo, hi = tra.sorted_range(n, k, median)
     C = 48                                   # three blocks of 16
     v = _select_stack(kind, n, C, seed=n + 7 * k)
-    got = _select_model(v, lo, hi)
+    got = _select_model(v, lo, hi, from_zero=not median and hi - lo >= 2)
     order = np.argsort(v, axis=0, kind="stable")
     cols = np.arange(C)
     keys = got["keys"]
@@ -568,6 +689,9 @@ def test_radix_select_model_matches_a_stable_sort(n, mode, k, kind):
     inf = np.isinf(want)
     np.testing.assert_array_equal(red[inf], want[inf])
     fin = np.isfinite(want)
+    zero = want == 0                          # a zero keeps the plain sign
+    np.testing.assert_array_equal(np.signbit(red[zero]),
+                                  np.signbit(want[zero]))
     if median:
         np.testing.assert_array_equal(red[fin].view(np.uint32),
                                       want[fin].view(np.uint32))

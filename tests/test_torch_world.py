@@ -159,9 +159,14 @@ def test_costs_match_jax(strategy, dims):
 
 
 def test_cefl_is_not_ported_yet():
-    with pytest.raises(KeyError, match="greedy_data"):
-        tapi.get_strategy("cefl")
+    """Once the test that ``cefl`` was missing; the SCA solver is ported
+    now, so the registry holds every strategy of the JAX package."""
+    from repro_torch.core.strategies import CEFLStrategy
+    assert isinstance(tapi.get_strategy("cefl"), CEFLStrategy)
     assert tapi.available_strategies() == sorted(
-        ["fedavg", "fednova", "fixed", "greedy_data", "greedy_rate"])
+        ["cefl", "fedavg", "fednova", "fixed", "greedy_data",
+         "greedy_rate"]) == japi.available_strategies()
+    with pytest.raises(KeyError, match="greedy_data"):
+        tapi.get_strategy("nope")
     with pytest.raises(ValueError, match="fixed"):
         tapi.get_strategy("fixed")
