@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of CE-FL (``src/repro_torch``) on one NVIDIA
 card and check it: the CE-FL rounds, the front door with the ``cefl``
-strategy and the LM serving path.
+strategy, multi-seed sweeps with resume, cohorts, the scenario fuzzer and
+the LM serving path.
 
     python3 chip_smoke.py            # from the repo root, on a machine with
                                      # one CUDA card, nvcc and nvidia-smi
@@ -69,6 +70,28 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              estimation's seconds.  Then one paper-width SCA solve,
              centralized and distributed, card against CPU to
              ``tests/test_solver_diff.py``'s bar, and one profiled solve.
+8. sweeps  — (runs after 7) ``repro_torch.experiments.sweep``:
+             ``paper_table1`` at paper width, seeds 0, 1, 2 cut to 4
+             rounds, with the vmap executor (one ``fedprox_accum`` launch
+             per cross-run DPU group and step, per-DPU anchors) and then
+             the sequential one: the run structure (plans, aggregators,
+             dc_points, handovers, active UEs, energy, delay) must be
+             identical, params / losses / accuracy bit for bit or within
+             rtol 1e-6; each sequential seed bit for bit
+             ``experiments.run``'s.  Per round: plan / device seconds and
+             launches against the groups; the sweep's wall time against
+             three solo runs.  Kill and resume of ``sweep_smoke``
+             (campus_walk, 4 rounds) and of the paper_table1 sweep
+             (stopped after round 2 into a checkpoint, resumed; bit for
+             bit; checkpoint bytes, write / read seconds).  The cohort
+             threat path: paper_table1's world at 100 UEs, 72 drawn a
+             round, ``byzantine`` under ``greedy_data``, trimmed mean x3
+             and median x2: every round one ``robust_aggregate`` launch
+             over n > 64 DPUs (the radix select) and no
+             ``nova_aggregate``; every stack held against the plain
+             version and the select timed at the path's n.  A ``cefl``
+             cohort run (10 UEs drawn, 2 rounds).  Two draws of the
+             scenario fuzzer.  Counters set to 0 before, read after.
 4. kernels — each hand-written kernel against its plain PyTorch version on
              the same card tensors, at every shape the paths launched it
              with and at extra cases, with the tolerance stated below
@@ -133,6 +156,14 @@ REPLACES = {
         "src/repro_torch/kernels/csrc/swa_decode_attention.cu",
         "src/repro/kernels/swa_decode_attention.py:55"),
 }
+
+# The shape of each kernel's row in the kernels line, fixed so the row's
+# series keeps its meaning as paths are added: the paper world's 25 DPUs
+# at the classifier's R = 176 plane (fedprox_accum in the mesh path's
+# per-DPU-anchor form).  A path must launch it; the other path shapes are
+# rows of result.json's kernel_rows.
+MAIN_SHAPES = {"fedprox_accum": (25, 176, "per_dpu"),
+               "nova_aggregate": (25, 176)}
 
 # The threat path: (scenario, strategy, robust mode, rounds).
 THREAT_RUNS = [("byzantine", "greedy_data", "trimmed_mean", 3),
@@ -368,7 +399,7 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
     for fedprox_accum {(G, R, anchor form): launches}; f32, as the paths
     run) and at the extra cases below.
     Every R = 176 case is timed.  Returns the per-case rows and, per
-    kernel, the row of the largest group the path launched."""
+    kernel, the row of its ``MAIN_SHAPES`` shape."""
     from repro_torch.kernels import fedprox_update as kfp
     from repro_torch.kernels import nova_aggregate as kna
     from repro_torch.kernels import ref
@@ -395,7 +426,6 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
     cases += [(5, R, dt, anc, 0) for R in (24, 40)
               for dt in (f32, torch.bfloat16)
               for anc in ("shared", "per_dpu")]
-    G_main = max(G for G, R, _ in path if R == 176)
     for G, R, dt, anc, on_path in cases:
         x, g, acc = (randn((G, R, LANE), dt) for _ in range(3))
         anchor = randn((R, LANE) if anc == "shared" else (G, R, LANE), dt)
@@ -425,7 +455,7 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
             row["bound_ms"] = max(nbytes / bw, flops / f32_rate) * 1e3
             row["bound_by"] = "bytes" if nbytes / bw >= flops / f32_rate \
                 else "operations"
-        if on_path and G == G_main and R == 176:
+        if on_path and (G, R, anc) == MAIN_SHAPES["fedprox_accum"]:
             main["fedprox_accum"] = row
         rows.append(row)
         log(f"  {_fmt(row)}")
@@ -441,7 +471,6 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
               for dt in (f32, torch.bfloat16)]
     cases += [(5, R, dt, 0) for R in (24, 40)
               for dt in (f32, torch.bfloat16)]
-    n_main = max(n for n, R in path if R == 176)
     # past 12,288 DPUs, the count whose weights once filled the kernel's
     # shared memory: the weights now pass through it in chunks
     cases += [(n, 8, f32, 0) for n in (12289, 20000)]
@@ -474,11 +503,15 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
             row["bound_ms"] = max(nbytes / bw, flops / f32_rate) * 1e3
             row["bound_by"] = "bytes" if nbytes / bw >= flops / f32_rate \
                 else "operations"
-        if on_path and n == n_main and R == 176:
+        if on_path and (n, R) == MAIN_SHAPES["nova_aggregate"]:
             main["nova_aggregate"] = row
         rows.append(row)
         log(f"  {_fmt(row)}")
         del d
+    for name, shape in MAIN_SHAPES.items():
+        if name not in main:
+            raise AssertionError(f"{name}: no path launched the kernels "
+                                 f"line's shape {shape}")
     return rows, main
 
 
@@ -2197,6 +2230,494 @@ def serve_reference_check(dev, cfg=None, layers=SERVE_CHECK["layers"],
     torch.cuda.empty_cache()
     return worst
 
+# ------------------------------------- phase 8: sweeps, resume, cohorts --
+
+# The paper_table1 sweep: the Tables I-II preset's three seeds at paper
+# width, cut to 4 rounds as in phase 7 (rounds 0 and 3 re-solve).
+SWEEP_OVER = {"engine.rounds": 4, "seeds": (0, 1, 2)}
+# The cohort threat path: paper_table1's world grown to 100 UEs, 72 drawn
+# per round, so a round's robust reduce sees 72 UEs + 5 DCs (> 64: the
+# radix select).  Fixed constants: greedy_data reads none, and the
+# estimation over 100 probe UEs would only add set-up time.
+COHORT_THREAT_OVER = {"network.num_ue": 100, "engine.cohort_size": 72,
+                      "scenario": "byzantine", "strategy": "greedy_data",
+                      "consts.mode": "fixed", "seeds": (0,),
+                      "engine.trim_frac": TRIM_FRAC}
+COHORT_THREAT_RUNS = [("trimmed_mean", 3), ("median", 2)]
+# The cefl cohort run: the SCA solve on a 10-UE subnetwork of paper_table1
+COHORT_CEFL_OVER = {"engine.cohort_size": 10, "engine.rounds": 2,
+                    "seeds": (0,)}
+# vmap against sequential: params, losses and accuracy within this of the
+# sequential executor's (the cross-run group's bmm batch count differs
+# from a run's own, and cuBLAS may pick its algorithm by batch count)
+SWEEP_RTOL = 1e-6
+
+
+def _identical(a, b) -> bool:
+    """Two RunResults bit for bit: every report field but the wall time,
+    the plans, and the final params."""
+    if len(a) != len(b):
+        return False
+    for ra, rb in zip(a.reports, b.reports):
+        for f in ("round", "acc", "loss", "energy", "delay", "cum_energy",
+                  "cum_delay", "aggregator", "dc_points", "gamma_mean",
+                  "m_mean", "handovers", "aggregator_moved", "active_ues"):
+            if getattr(ra, f) != getattr(rb, f):
+                return False
+        wa, wb = ra.plan.to_w(), rb.plan.to_w()
+        if any(not torch.equal(wa[k], wb[k]) for k in wa):
+            return False
+    return all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+
+
+def sweep_parity(vm, seq) -> dict:
+    """The parity contract between the two executors' results: the run
+    structure (plans, aggregators, dc_points, handovers, active UEs,
+    energy, delay) exact; params, losses and accuracy bit for bit or
+    within ``SWEEP_RTOL`` (losses and accuracy relative, params by the
+    largest |param| of each leaf).  Raises on a miss."""
+    out = {"exact": True, "loss_rel": 0.0, "acc_rel": 0.0,
+           "params_rel": 0.0}
+    for (key, a), (_, b) in zip(vm.runs, seq.runs):
+        for ra, rb in zip(a.reports, b.reports):
+            for f in ("round", "aggregator", "dc_points", "handovers",
+                      "active_ues", "energy", "delay", "cum_energy",
+                      "cum_delay", "gamma_mean", "m_mean"):
+                if getattr(ra, f) != getattr(rb, f):
+                    raise AssertionError(f"sweep seed {key.seed} round "
+                                         f"{ra.round}: {f} differs")
+            wa, wb = ra.plan.to_w(), rb.plan.to_w()
+            for k in wa:
+                if not torch.equal(wa[k], wb[k]):
+                    raise AssertionError(f"sweep seed {key.seed} round "
+                                         f"{ra.round}: plan {k} differs")
+            for f in ("loss", "acc"):
+                x, y = getattr(ra, f), getattr(rb, f)
+                rel = abs(x - y) / max(abs(y), 1e-30)
+                out[f"{f}_rel"] = max(out[f"{f}_rel"], rel)
+        for k in a.params:
+            err = float((a.params[k] - b.params[k]).abs().max())
+            scale = float(b.params[k].abs().max())
+            out["params_rel"] = max(out["params_rel"], err / scale)
+    out["exact"] = all(_identical(a, b)
+                       for (_, a), (_, b) in zip(vm.runs, seq.runs))
+    worst = max(out["loss_rel"], out["acc_rel"], out["params_rel"])
+    if worst > SWEEP_RTOL:
+        raise AssertionError(f"vmap vs sequential sweep: {out} beyond "
+                             f"rtol {SWEEP_RTOL}")
+    return out
+
+
+class _ShapeRecorder:
+    """Wraps the kernel wrappers for the length of a ``with`` block and
+    counts the shapes they launched with: fedprox_accum (G, R, anchor
+    form), nova_aggregate (n, R), and every robust_aggregate stack kept
+    (with its inputs and output) for the check against the plain
+    version."""
+
+    def __init__(self):
+        self.shapes = {"fedprox_accum": Counter(),
+                       "nova_aggregate": Counter()}
+        self.robust = []
+
+    def __enter__(self):
+        from repro_torch.kernels import fedprox_update as kfp
+        from repro_torch.kernels import nova_aggregate as kna
+        from repro_torch.kernels import robust_aggregate as kra
+        self._mods = (kfp, kna, kra)
+        self._real = (kfp.fedprox_accum, kna.nova_aggregate,
+                      kra.robust_aggregate)
+        real_fp, real_na, real_ra = self._real
+
+        def fedprox_accum(x, g, anchor, *a):
+            form = "per_dpu" if anchor.dim() == 3 else "shared"
+            self.shapes["fedprox_accum"][(x.shape[0], x.shape[1],
+                                          form)] += 1
+            return real_fp(x, g, anchor, *a)
+
+        def nova_aggregate(x, d, *a):
+            self.shapes["nova_aggregate"][(d.shape[0], d.shape[1])] += 1
+            return real_na(x, d, *a)
+
+        def robust_aggregate(x, d, theta_eta, *, k=0, median=False):
+            out = real_ra(x, d, theta_eta, k=k, median=median)
+            self.robust.append((x.clone(), d.clone(), theta_eta, k, median,
+                                out.clone()))
+            return out
+
+        kfp.fedprox_accum = fedprox_accum
+        kna.nova_aggregate = nova_aggregate
+        kra.robust_aggregate = robust_aggregate
+        return self
+
+    def __exit__(self, *exc):
+        kfp, kna, kra = self._mods
+        kfp.fedprox_accum, kna.nova_aggregate, kra.robust_aggregate = \
+            self._real
+
+
+def _want_launches(groups_per_run, union: bool) -> int:
+    """fedprox_accum launches of one sweep round: gamma per DPU group,
+    per run (sequential) or per cross-run group (vmap)."""
+    if union:
+        keys = set().union(*[set(g) for g in groups_per_run])
+        return sum(gamma for gamma, _m, _b in keys)
+    return sum(gamma for g in groups_per_run for gamma, _m, _b in g)
+
+
+def drive_sweep_path(dev):
+    """Phase 8, part 1-2: the paper_table1 sweep through
+    ``experiments.sweep`` with the vmap and then the sequential executor,
+    held to the parity contract; three solo ``experiments.run``s, each
+    bit for bit the sequential sweep's seed; then kill and resume
+    (``stop_after=2`` into a checkpoint, ``resume=True``) of sweep_smoke
+    (campus_walk, 4 rounds) and of the paper_table1 sweep, bit for bit
+    against the uninterrupted vmap sweeps (paper_table1's round 3
+    re-solves from the restored warm-start plan: one SCA solve per seed
+    on resume).  Per sweep round: plan seconds (every run's begin_round),
+    device seconds, fedprox_accum launches against the groups."""
+    import importlib
+    import tempfile
+    from repro_torch import experiments
+    from repro_torch.core.engine import Engine, dpu_groups, live_dpus
+    from repro_torch.experiments import runstate
+    from repro_torch.kernels import ops
+    from repro_torch.solver import sca
+    sw = importlib.import_module("repro_torch.experiments.sweep")
+
+    records, cur = [], {"plan": 0.0}
+    ck_times = {"save": [], "load": []}
+    solves = []
+    real = {"begin": Engine.begin_round,
+            "save": runstate.save_sweep_state,
+            "load": runstate.load_sweep_state, "solve": sca.solve,
+            sw.SequentialSweepExecutor: sw.SequentialSweepExecutor
+            ._device_phase,
+            sw.VmapSweepExecutor: sw.VmapSweepExecutor._device_phase}
+
+    def begin_round(self, state, ues):
+        t0 = time.perf_counter()
+        out = real["begin"](self, state, ues)
+        cur["plan"] += time.perf_counter() - t0
+        return out
+
+    def wrap_phase(cls):
+        def phase(self, ctx, active, staged):
+            before = dict(ops.LAUNCHES)
+            groups = [dpu_groups(st.plan, live_dpus(st.datasets))
+                      for st in staged]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real[cls](self, ctx, active, staged)
+            torch.cuda.synchronize()
+            got = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            want = _want_launches(groups,
+                                  union=self.executor_name == "vmap")
+            if got["fedprox_accum"] != want or \
+                    got["nova_aggregate"] != len(active):
+                raise AssertionError(
+                    f"{self.executor_name} sweep round {staged[0].t}: "
+                    f"launches {got}, want fedprox_accum {want} and "
+                    f"nova_aggregate {len(active)}")
+            records.append({
+                "spec": ctx.spec.name, "executor": self.executor_name,
+                "round": staged[0].t, "runs": len(active),
+                "plan_s": cur["plan"],
+                "device_s": time.perf_counter() - t0,
+                "groups": [[len(v) for v in g.values()] for g in groups],
+                "launches": got})
+            cur["plan"] = 0.0
+        return phase
+
+    def timed(name):
+        def fn(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            ck_times[name].append(time.perf_counter() - t0)
+            return out
+        return fn
+
+    def solve(*a, **kw):
+        solves.append(1)
+        return real["solve"](*a, **kw)
+
+    def sweep(*a, **kw):
+        cur["plan"] = 0.0           # a solo run's begin_round is no sweep's
+        return experiments.sweep(*a, **kw)
+
+    spec = experiments.get_experiment("paper_table1").override(**SWEEP_OVER)
+    smoke = experiments.get_experiment("sweep_smoke").override(
+        **{"engine.rounds": 4})
+    out = {}
+    Engine.begin_round = begin_round
+    for cls in (sw.SequentialSweepExecutor, sw.VmapSweepExecutor):
+        cls._device_phase = wrap_phase(cls)
+    runstate.save_sweep_state = timed("save")
+    runstate.load_sweep_state = timed("load")
+    sca.solve = solve
+    try:
+        experiments.build_context(spec, device=dev)    # phase 7's, cached
+        results, wall = {}, {}
+        for executor in ("vmap", "sequential"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[executor] = sweep(spec, executor=executor, device=dev)
+            torch.cuda.synchronize()
+            wall[executor] = time.perf_counter() - t0
+        parity = sweep_parity(results["vmap"], results["sequential"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for seed in spec.run_seeds:
+            solo = experiments.run(spec, seed=seed, device=dev)
+            if not _identical(results["sequential"].result(seed), solo):
+                raise AssertionError(f"sequential sweep seed {seed} is not "
+                                     "experiments.run's bit for bit")
+        torch.cuda.synchronize()
+        wall["three_solo_runs"] = time.perf_counter() - t0
+        out.update(parity=parity, wall_s=wall,
+                   stats=results["vmap"].stats())
+        # sweep_smoke (greedy_data: every DPU of a run shares its (gamma,
+        # m), so runs' groups merge) both ways: the launch contrast
+        smoke_full = sweep(smoke, executor="vmap", device=dev)
+        out["smoke_parity"] = sweep_parity(
+            smoke_full, sweep(smoke, executor="sequential", device=dev))
+        resume = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for s, full in ((smoke, smoke_full), (spec, results["vmap"])):
+                ck = Path(tmp) / s.name
+                n_save = len(ck_times["save"])
+                part = sweep(s, executor="vmap", device=dev,
+                             checkpoint_dir=ck, stop_after=2)
+                nbytes = sum(f.stat().st_size for f in ck.iterdir())
+                n0 = len(solves)
+                res = sweep(s, executor="vmap", device=dev,
+                            checkpoint_dir=ck, resume=True)
+                for seed in s.run_seeds:
+                    if len(part.result(seed)) != 2 or not _identical(
+                            res.result(seed), full.result(seed)):
+                        raise AssertionError(f"{s.name} seed {seed}: kill "
+                                             "and resume is not the "
+                                             "uninterrupted sweep")
+                resume[s.name] = {
+                    "checkpoint_bytes": nbytes,
+                    "write_s": ck_times["save"][n_save],
+                    "read_s": ck_times["load"][-1],
+                    "solves_on_resume": len(solves) - n0}
+        want_solves = len(spec.run_seeds)        # round 3, every seed
+        if resume[spec.name]["solves_on_resume"] != want_solves:
+            raise AssertionError(f"paper_table1 resume: "
+                                 f"{resume[spec.name]['solves_on_resume']}"
+                                 f" SCA solves, want {want_solves}")
+        out["resume"] = resume
+    finally:
+        Engine.begin_round = real["begin"]
+        for cls in (sw.SequentialSweepExecutor, sw.VmapSweepExecutor):
+            cls._device_phase = real[cls]
+        runstate.save_sweep_state = real["save"]
+        runstate.load_sweep_state = real["load"]
+        sca.solve = real["solve"]
+    out["rounds"] = records
+    for r in records:
+        log(f"  {r['spec']:<12} {r['executor']:<10} round {r['round']}: "
+            f"plan {r['plan_s']:.3f} s  device {r['device_s']:.3f} s  "
+            f"fedprox_accum {r['launches']['fedprox_accum']}  groups "
+            f"{r['groups']}")
+    for s in (spec, smoke):
+        for executor in ("vmap", "sequential"):
+            rs = [r for r in records if r["spec"] == s.name
+                  and r["executor"] == executor][:s.engine.rounds]
+            out[f"{s.name}_{executor}_per_round"] = {
+                "plan_s": [r["plan_s"] for r in rs],
+                "device_s": [r["device_s"] for r in rs],
+                "fedprox_accum": [r["launches"]["fedprox_accum"]
+                                  for r in rs]}
+    log(f"  paper_table1 sweep of seeds {list(spec.run_seeds)} x "
+        f"{spec.engine.rounds} rounds: vmap {wall['vmap']:.3f} s, "
+        f"sequential {wall['sequential']:.3f} s, three solo runs "
+        f"{wall['three_solo_runs']:.3f} s; vmap vs sequential: exact "
+        f"{parity['exact']}, loss rel {parity['loss_rel']:.3g}, acc rel "
+        f"{parity['acc_rel']:.3g}, params rel {parity['params_rel']:.3g}")
+    log(f"  sweep_smoke vmap vs sequential: {out['smoke_parity']}; "
+        f"fedprox_accum per round vmap "
+        f"{out['sweep_smoke_vmap_per_round']['fedprox_accum']}, sequential "
+        f"{out['sweep_smoke_sequential_per_round']['fedprox_accum']}")
+    for name, r in out["resume"].items():
+        log(f"  resume {name}: checkpoint {r['checkpoint_bytes']} bytes, "
+            f"write {r['write_s']:.4f} s, read {r['read_s']:.4f} s, "
+            f"SCA solves on resume {r['solves_on_resume']}; bit for bit")
+    return out
+
+
+def drive_cohort_paths(dev):
+    """Phase 8, part 3: the cohort threat path (paper_table1's world at
+    100 UEs, 72 drawn per round, byzantine under greedy_data: 3 rounds of
+    the trimmed mean, then 2 of the median) and one cefl cohort run
+    (paper_table1, 10 UEs drawn, 2 rounds: the SCA solve on the
+    subnetwork).  Every threat round launches robust_aggregate once with
+    n > 64 and nova_aggregate never; every cefl round nova_aggregate
+    once.  Returns the per-round records and the shape recorder (its
+    robust stacks go to :func:`cohort_robust_checks`)."""
+    from repro_torch import experiments
+    from repro_torch.core.engine import dpu_groups, live_dpus
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import robust_aggregate as kra
+
+    base = experiments.get_experiment("paper_table1")
+    records = []
+
+    def drive(spec, want_fn, tag):
+        ctx = experiments.build_context(spec, device=dev)
+        eng = ctx.make_engine(spec.run_seeds[0])
+        ues = ctx.make_ues(spec.run_seeds[0])
+        state = eng.init_loop(ues, init_params=ctx.p0, loss_fn=ctx.loss_fn,
+                              eval_fn=ctx.eval_fn)
+        while state.t < eng.opts.rounds:
+            before = dict(ops.LAUNCHES)
+            t0 = time.perf_counter()
+            staged = eng.begin_round(state, ues)
+            t1 = time.perf_counter()
+            live = live_dpus(staged.datasets)
+            groups = dpu_groups(staged.plan, live)
+            mean_loss, acc = eng.execute_round(state, staged)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rep = eng.finish_round(state, staged, mean_loss, acc)
+            got = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            want = dict.fromkeys(ops.LAUNCHES, 0)
+            want.update(fedprox_accum=sum(g for g, _m, _b in groups),
+                        **want_fn(len(live)))
+            if got != want:
+                raise AssertionError(f"{tag} round {rep.round}: launches "
+                                     f"{got} != {want}")
+            if len(staged.cohort) != spec.engine.cohort_size:
+                raise AssertionError(f"{tag}: cohort {staged.cohort}")
+            rep.plan.validate(staged.net_t)
+            if not np.isfinite(rep.loss):
+                raise AssertionError(f"{tag} round {rep.round}: loss "
+                                     f"{rep.loss}")
+            r = {"path": tag, "round": rep.round, "n": len(live),
+                 "cohort": len(staged.cohort), "plan_s": t1 - t0,
+                 "device_s": t2 - t1, "loss": rep.loss, "acc": rep.acc,
+                 "aggregator": rep.aggregator, "energy_J": rep.energy,
+                 "delay_s": rep.delay, "launches": got}
+            records.append(r)
+            log(f"  {tag} round {rep.round}: n={r['n']} (cohort "
+                f"{r['cohort']})  plan {r['plan_s']:.3f} s  device "
+                f"{r['device_s']:.3f} s  loss {rep.loss:.4f}  acc "
+                f"{rep.acc:.3f}  aggregator DC{rep.aggregator}  energy "
+                f"{rep.energy:.2f} J  launches {got}")
+
+    with _ShapeRecorder() as shapes:
+        for mode, rounds in COHORT_THREAT_RUNS:
+            spec = base.override(**COHORT_THREAT_OVER).override(
+                **{"engine.robust_agg": mode, "engine.rounds": rounds})
+
+            def threat_want(n):
+                if n <= kra.NETWORK_MAX:
+                    raise AssertionError(f"cohort threat round: n = {n} "
+                                         "takes the network, not the "
+                                         "radix select")
+                return {"robust_aggregate": 1}
+            drive(spec, threat_want, f"cohort byzantine {mode}")
+        drive(base.override(**COHORT_CEFL_OVER),
+              lambda n: {"nova_aggregate": 1}, "cohort cefl")
+    return records, shapes
+
+
+def cohort_robust_checks(stacks, timer, bw, f32_rate):
+    """Each robust stack phase 8 launched (the cohort threat path's, then
+    the fuzzer's) against the plain version on the same inputs (median
+    bitwise in f32; trimmed mean within two ulps of the largest |x| plus
+    |theta_eta| * 2m ulps of the largest |d|), and the radix select timed
+    at the cohort path's n, per mode (the first stack of each mode above
+    the network's 64; after the phase's counters were read: these
+    launches are not the path's)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import robust_aggregate as kra
+    from repro_torch.kernels.plane import LANE
+
+    checks, timed = [], {}
+    for x, d, theta_eta, k, median, got in stacks:
+        want = ref.robust_aggregate_ref(x, d, theta_eta, k=k, median=median)
+        n = d.shape[0]
+        m = (1 if n % 2 else 2) if median else n - 2 * k
+        atol = 0.0 if median else (
+            2 * _spacing(x) + abs(theta_eta) * 2 * m * _spacing(d))
+        c = within(got, want, atol)
+        c.update(n=n, k=k, mode="median" if median else "trimmed_mean")
+        checks.append(c)
+        if not c["ok"]:
+            raise AssertionError(f"cohort robust_aggregate n={n}: {c}")
+        if c["mode"] not in timed and n > kra.NETWORK_MAX:
+            nbytes = 4 * d.shape[1] * LANE * (n + 2)
+            flops = robust_operations(n, m, d.shape[1], kra.NETWORK_MAX)
+            timed[c["mode"]] = {
+                "n": n, "k": k, "R": d.shape[1],
+                "ms": timer(lambda: kra.robust_aggregate(
+                    x, d, theta_eta, k=k, median=median)),
+                "plain_ms": timer(lambda: ref.robust_aggregate_ref(
+                    x, d, theta_eta, k=k, median=median)),
+                "library_ms": (timer(lambda: torch.median(d, dim=0))
+                               if median and n % 2 else None),
+                "bound_ms": max(nbytes / bw, flops / f32_rate) * 1e3,
+                "max_abs_err": c["max_abs_err"]}
+    for mode, t in timed.items():
+        log(f"  radix select at the cohort path's n = {t['n']} ({mode}, "
+            f"k={t['k']}): {t['ms'] * 1e3:.1f} us per call, plain "
+            f"{t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.1f}"
+            f" us" + ("" if t["library_ms"] is None else
+                      f", torch.median {t['library_ms'] * 1e3:.1f} us"))
+    log(f"  {len(checks)} robust stacks held against the plain version, "
+        f"n = {sorted({c['n'] for c in checks})}")
+    return checks, timed
+
+
+def drive_sweep_phase(dev, timer, bw, f32_rate):
+    """Phase 8: the sweep path, kill and resume, the cohort paths and two
+    fuzzer draws on the card.  The launch counters are set to 0 just
+    before and read just after; returns the launch counts, the
+    fedprox_accum / nova_aggregate shapes the phase launched (phase 4
+    checks each) and the records."""
+    from repro_torch.kernels import ops
+    from repro_torch.scenario import fuzz
+
+    ops.reset_launches()                       # counts to 0: the phase
+    t0 = time.perf_counter()
+    with _ShapeRecorder() as sweep_shapes:
+        sweep = drive_sweep_path(dev)
+    t1 = time.perf_counter()
+    cohort, cohort_shapes = drive_cohort_paths(dev)
+    t2 = time.perf_counter()
+    with _ShapeRecorder() as fuzz_shapes:
+        failing = fuzz.run_fuzz(2, 0, str(OUT / "fuzz_out"), device=dev,
+                                progress=lambda s: log(f"  {s}"))
+    t3 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)              # read just after
+    if failing:
+        raise AssertionError(f"the fuzzer failed draws: {failing}")
+    n_threat = sum(r["path"].startswith("cohort byzantine") for r in cohort)
+    if len(cohort_shapes.robust) != n_threat:
+        raise AssertionError(f"{len(cohort_shapes.robust)} robust stacks "
+                             f"for {n_threat} cohort threat rounds")
+    stacks = cohort_shapes.robust + fuzz_shapes.robust
+    if len(stacks) != launches["robust_aggregate"]:
+        raise AssertionError(f"{len(stacks)} robust stacks recorded for "
+                             f"{launches['robust_aggregate']} launches")
+    robust_checks, radix = cohort_robust_checks(stacks, timer, bw, f32_rate)
+    shapes = {name: sweep_shapes.shapes[name] + cohort_shapes.shapes[name]
+              + fuzz_shapes.shapes[name] for name in sweep_shapes.shapes}
+    log(f"  launches {launches}; seconds: sweeps and resume {t1 - t0:.1f},"
+        f" cohorts {t2 - t1:.1f}, fuzzer {t3 - t2:.1f}")
+    for name in ("fedprox_accum", "nova_aggregate", "robust_aggregate"):
+        if not launches[name]:
+            raise AssertionError(f"kernel {name}: no launch in phase 8")
+    return launches, shapes, {"sweep": sweep, "cohort": {
+        "rounds": cohort, "robust_checks": robust_checks,
+        "radix_select": radix}, "fuzz_seconds": t3 - t2,
+        "seconds": t3 - t0}
+
+
 # ---------------------------------------------------------------- main --
 
 def main() -> int:
@@ -2276,15 +2797,25 @@ def main() -> int:
         drive_cefl_path(dev)
     c_check = cefl_solve_check(dev, c_contexts["paper_table1"])
 
+    log("phase 8: sweeps through experiments.sweep (paper_table1 seeds "
+        "0-2 x 4 rounds, vmap and sequential), kill and resume, the "
+        "cohort threat path (100 UEs, 72 a round) and a cefl cohort run, "
+        "two fuzzer draws")
+    timer = Timer(dev)
+    p_launches, p_shapes, p_records = drive_sweep_phase(dev, timer, bw,
+                                                        f32_rate)
+    del timer
+
     log(f"phase 4: kernels vs plain versions at the paths' shapes and extra "
         f"cases ({smi})")
     timer = Timer(dev)
     # each kernel at every shape any path launched it with
     checked = {"fedprox_accum": shapes["fedprox_accum"]
                + t_shapes["fedprox_accum"] + m_shapes["fedprox_accum"]
-               + c_shapes["fedprox_accum"],
+               + c_shapes["fedprox_accum"] + p_shapes["fedprox_accum"],
                "nova_aggregate": shapes["nova_aggregate"]
-               + a_shapes["nova_aggregate"] + c_shapes["nova_aggregate"]}
+               + a_shapes["nova_aggregate"] + c_shapes["nova_aggregate"]
+               + p_shapes["nova_aggregate"]}
     rows, main_rows = kernel_checks(dev, timer, bw, f32_rate, checked)
     r_rows, main_rows["robust_aggregate"] = robust_checks(
         dev, timer, bw, f32_rate, t_shapes["robust_aggregate"])
@@ -2320,7 +2851,7 @@ def main() -> int:
             "replaces": REPLACES[name][1],
             "launches": sum(c.get(name, 0) for c in (
                 launches, t_launches, m_launches, a_launches, s_launches,
-                c_launches)),
+                c_launches, p_launches)),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2355,6 +2886,9 @@ def main() -> int:
         "cefl_launch_shapes": {k: [list(key) + [n] for key, n in c.items()]
                                for k, c in c_shapes.items()},
         "cefl_estimate_s": c_estimate, "cefl_solve_check": c_check,
+        "phase8": p_records, "phase8_launches": p_launches,
+        "phase8_launch_shapes": {k: [list(key) + [n] for key, n in c.items()]
+                                 for k, c in p_shapes.items()},
         "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -64,6 +64,12 @@ class EngineOptions:
     trim_frac: float = 0.1          # trim fraction per side for
                                     # robust_agg="trimmed_mean" (k =
                                     # min(floor(n*frac), (n-1)//2))
+    cohort_size: Optional[int] = None
+                                    # per-round client sampling: K UEs drawn
+                                    # uniformly without replacement each
+                                    # round; the others sit out (no data, no
+                                    # solver rows, no cost).  None/K >= N ->
+                                    # full participation
 
 
 @dataclasses.dataclass(frozen=True)

@@ -91,6 +91,41 @@ class OnlineDataset:
     def num_classes(self):
         return int(self.labels.max()) + 1
 
+    # -- full-state resume (repro_torch.experiments.runstate) -----------
+
+    def state_dict(self) -> dict:
+        """Everything that evolves round to round: PRNG state, the live
+        data buffer, and the round counter.  Leaves are arrays/scalars so
+        the dict rides through ``training.checkpoint`` unchanged.  ``_x``
+        is None until the first ``step``; a zero-length buffer keeps the
+        tree structure identical at every round."""
+        kind, keys, pos, has_gauss, cached = self._rng.get_state()
+        if kind != "MT19937":
+            raise ValueError(f"unexpected RandomState kind {kind!r}")
+        return {
+            "rng": {"keys": np.asarray(keys), "pos": int(pos),
+                    "has_gauss": int(has_gauss), "cached": float(cached)},
+            "x": self.features[:0] if self._x is None
+                 else np.asarray(self._x),
+            "y": self.labels[:0] if self._y is None
+                 else np.asarray(self._y),
+            "has_data": int(self._x is not None),
+            "round": int(self._round),
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        self._rng.set_state(("MT19937",
+                             np.asarray(d["rng"]["keys"], np.uint32),
+                             int(d["rng"]["pos"]),
+                             int(d["rng"]["has_gauss"]),
+                             float(d["rng"]["cached"])))
+        if int(d["has_data"]):
+            self._x = np.asarray(d["x"])
+            self._y = np.asarray(d["y"])
+        else:
+            self._x = self._y = None
+        self._round = int(d["round"])
+
     def step(self) -> dict:
         """Advance one global round; returns {'x', 'y'} current local data
         as host numpy arrays."""

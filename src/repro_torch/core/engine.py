@@ -54,10 +54,11 @@ from repro_torch.core.api import (DecisionContext, EngineOptions,
                                   RunResult, get_strategy, weighted_mean)
 from repro_torch.core.round_step import CEFLHyper, build_cefl_round_step
 from repro_torch.device import require_device
-from repro_torch.kernels.plane import (as_plane, as_tree,
+from repro_torch.kernels.plane import (ParamPlane, as_plane, as_tree,
                                       tree_from_paths, tree_paths)
 from repro_torch.network.costs import network_costs, round_delay, \
     round_energy
+from repro_torch.network.topology import subnetwork
 from repro_torch.scenario.base import get_scenario
 
 
@@ -168,6 +169,22 @@ def dpu_groups(plan: RoundPlan, live) -> Dict[tuple, list]:
     return groups
 
 
+def fuses(groups: Dict[tuple, list], agg: str, corrupt,
+          robust_agg: str) -> bool:
+    """Whether a round runs as ONE fused program: its live DPUs form one
+    group, the aggregation is eq. 11 or FedNova, and nothing acts between
+    training and aggregation (no corruption, no robust reduce)."""
+    return (len(groups) == 1 and agg in ("cefl", "fednova")
+            and not corrupt and robust_agg == "none")
+
+
+def fused_theta(agg: str, theta: Optional[float], gamma: int) -> float:
+    """theta of a fused round: tau_eff = sum_i p_i gamma_i degenerates to
+    the group's gamma, which is also FedNova's theta."""
+    return float(theta) if (agg == "cefl" and theta is not None) \
+        else float(gamma)
+
+
 def _aggregate(params, results, agg: str, *, eta: float,
                theta: Optional[float], robust: str = "none",
                trim_frac: float = 0.1):
@@ -243,6 +260,7 @@ def corrupt_local_results(results, live, corrupt, anchor, noise):
         r.params = r.params.with_data(p)
 
 
+@dataclasses.dataclass
 class SimExecutor:
     """Simulation backend: per-DPU FedProx on each DPU's own dataset, on
     the parameters' device.
@@ -252,15 +270,14 @@ class SimExecutor:
     Aggregation is one ``nova_aggregate`` launch over the stacked d_i
     planes (FedAvg averages the local models instead).
 
-    A round whose live DPUs form ONE group under eq.-11 or FedNova
-    aggregation runs as a single program (``fedprox.local_round_plane``):
-    training + eq. 10 + eq. 11 and, when ``eval_fn`` is given, the eval
-    pass on the new model.  Update corruption (``corrupt``) and robust
-    aggregation (``robust_agg`` != "none", one ``robust_aggregate``
-    launch) act between training and aggregation, so such rounds never
-    fuse.
+    A grouped round whose live DPUs form ONE group under eq.-11 or
+    FedNova aggregation runs as a single program
+    (``fedprox.local_round_plane``): training + eq. 10 + eq. 11 and, when
+    ``eval_fn`` is given, the eval pass on the new model.  Update
+    corruption (``corrupt``) and robust aggregation (``robust_agg`` !=
+    "none", one ``robust_aggregate`` launch) act between training and
+    aggregation, so such rounds never fuse (:func:`fuses`).
     """
-
     def run_round(self, params, plan: RoundPlan, datasets, *, loss_fn,
                   eta: float, mu: float, theta: Optional[float], agg: str,
                   generator: torch.Generator, eval_fn=None, corrupt=(),
@@ -272,19 +289,13 @@ class SimExecutor:
         if not live:
             return params, float("nan"), None
         groups = dpu_groups(plan, live)
-        if (len(groups) == 1 and agg in ("cefl", "fednova")
-                and not corrupt and robust_agg == "none"):
+        if fuses(groups, agg, corrupt, robust_agg):
             (gamma, m, _bucket), idxs = next(iter(groups.items()))
-            # tau_eff = sum_i p_i gamma_i degenerates to gamma here,
-            # which is also FedNova's theta
-            theta_val = float(theta) if (agg == "cefl"
-                                         and theta is not None) \
-                else float(gamma)
             Ds = [len(live[j][1]["y"]) for j in idxs]
             new_params, losses, acc = fedprox.local_round_plane(
                 params, loss_fn, [live[j][1] for j in idxs],
                 gamma=gamma, m_frac=m, eta=eta, mu=mu, generator=generator,
-                theta=theta_val, eval_fn=eval_fn)
+                theta=fused_theta(agg, theta, gamma), eval_fn=eval_fn)
             return new_params, weighted_mean(list(losses), Ds), acc
         results = [None] * len(live)
         for (gamma, m, _bucket), idxs in groups.items():
@@ -293,6 +304,16 @@ class SimExecutor:
                 gamma=gamma, m_frac=m, eta=eta, mu=mu, generator=generator)
             for j, r in zip(idxs, out):
                 results[j] = r
+        return self._aggregate_results(
+            params, results, live, agg=agg, eta=eta, theta=theta,
+            generator=generator, corrupt=corrupt, robust_agg=robust_agg,
+            trim_frac=trim_frac)
+
+    @staticmethod
+    def _aggregate_results(params, results, live, *, agg, eta, theta,
+                           generator, corrupt, robust_agg, trim_frac):
+        """The round's corruptions, then the aggregation of the local
+        results; returns ``(new_params, mean_loss, None)``."""
         if corrupt:
             corrupt_local_results(results, live, corrupt, params,
                                   gaussian_noise(generator))
@@ -461,14 +482,82 @@ class MeshExecutor:
         return new_params, float(metrics["loss"]), None
 
 
+# ---------------------------------------------------- cohort sampling -----
+
+def _gather_plan(plan: RoundPlan, cohort: np.ndarray, n_ue: int) -> RoundPlan:
+    """Restrict a full-population plan to the cohort rows (the warm-start
+    view handed to the solver, and the costing view of off-cadence
+    rounds)."""
+    idx = torch.as_tensor(cohort, dtype=torch.long)
+    g, m = plan.gamma, plan.m
+    return dataclasses.replace(
+        plan, rho_nb=plan.rho_nb[idx], f_n=plan.f_n[idx],
+        gamma=torch.cat([g[:n_ue][idx], g[n_ue:]]),
+        m=torch.cat([m[:n_ue][idx], m[n_ue:]]),
+        I_nb=plan.I_nb[idx], I_bn=plan.I_bn[:, idx])
+
+
+def _scatter_plan(sub: RoundPlan, cohort: np.ndarray, net,
+                  opts: EngineOptions) -> RoundPlan:
+    """Embed a cohort plan back into a full-population RoundPlan.
+
+    Non-cohort UEs sit the round out: zero offloading (they hold no round
+    data anyway), idle CPU frequency ``f_min``, the default (gamma, m)
+    settings, and rate-argmax one-hot associations, so every field still
+    satisfies :meth:`RoundPlan.validate` at the full dims.
+    """
+    N, B, S = net.dims
+    K = int(cohort.shape[0])
+    rho_nb = np.zeros((N, B), np.float32)
+    rho_nb[cohort] = sub.rho_nb.numpy()
+    f_n = np.full(N, net.cfg.f_min, np.float32)
+    f_n[cohort] = sub.f_n.numpy()
+    gamma = np.full(N + S, float(opts.gamma_default), np.float32)
+    sg = sub.gamma.numpy()
+    gamma[:N][cohort] = sg[:K]
+    gamma[N:] = sg[K:]
+    m = np.full(N + S, float(opts.m_default), np.float32)
+    sm = sub.m.numpy()
+    m[:N][cohort] = sm[:K]
+    m[N:] = sm[K:]
+    I_nb = np.eye(B, dtype=np.float32)[
+        np.argmax(np.asarray(net.R_nb), axis=1)]
+    I_nb[cohort] = sub.I_nb.numpy()
+    I_bn = np.zeros((B, N), np.float32)
+    I_bn[np.argmax(np.asarray(net.R_bn), axis=0), np.arange(N)] = 1.0
+    I_bn[:, cohort] = sub.I_bn.numpy()
+    return dataclasses.replace(
+        sub, rho_nb=torch.from_numpy(rho_nb), f_n=torch.from_numpy(f_n),
+        gamma=torch.from_numpy(gamma), m=torch.from_numpy(m),
+        I_nb=torch.from_numpy(I_nb), I_bn=torch.from_numpy(I_bn))
+
+
 # ----------------------------------------------------------- engine -----
+
+def _rng_state_dict(rng: np.random.RandomState) -> dict:
+    """A numpy ``RandomState`` state as array/scalar leaves (MT19937)."""
+    kind, keys, pos, has_gauss, cached = rng.get_state()
+    if kind != "MT19937":
+        raise ValueError(f"unexpected RandomState kind {kind!r}")
+    return {"keys": np.asarray(keys), "pos": int(pos),
+            "has_gauss": int(has_gauss), "cached": float(cached)}
+
+
+def _rng_from_state_dict(d: dict) -> np.random.RandomState:
+    rng = np.random.RandomState()
+    rng.set_state(("MT19937", np.asarray(d["keys"], np.uint32),
+                   int(d["pos"]), int(d["has_gauss"]), float(d["cached"])))
+    return rng
+
 
 @dataclasses.dataclass
 class LoopState:
     """The full mutable state of one orchestration run between rounds:
     the host ``RandomState``, the device ``torch.Generator`` of the
-    mini-batch draws, the parameter plane and the run's accounting.
-    ``loss_fn`` / ``eval_fn`` are behavior, not state."""
+    mini-batch draws, the parameter plane and the run's accounting, so a
+    run can be advanced one round at a time, checkpointed mid-run
+    (:meth:`state_dict`) and resumed bit-exactly.  ``loss_fn`` /
+    ``eval_fn`` are behavior, not state."""
     rng: np.random.RandomState
     generator: torch.Generator
     params: object
@@ -483,6 +572,57 @@ class LoopState:
     stopped: bool = False
     last_acc: float = float("nan")
 
+    def state_dict(self) -> dict:
+        """Array/scalar leaves of the loop state (reports excluded: the
+        metric trace serializes as JSON records at the experiments layer,
+        ``repro_torch.experiments.runstate``).  ``generator`` is the
+        ``torch.Generator`` state, whose form is the device type's
+        (``device_type``); the plane is copied to the CPU."""
+        plane = as_plane(self.params)
+        plan = {} if self.plan is None else \
+            {k: v.numpy() for k, v in self.plan.to_w().items()}
+        return {
+            "t": int(self.t),
+            "cum_E": float(self.cum_E), "cum_D": float(self.cum_D),
+            "prev_agg": -1 if self.prev_agg is None else int(self.prev_agg),
+            "last_acc": float(self.last_acc),
+            "stopped": int(self.stopped),
+            "rng": _rng_state_dict(self.rng),
+            "generator": self.generator.get_state(),
+            "device_type": self.generator.device.type,
+            "params_plane": plane.data.detach().to("cpu", copy=True),
+            "plan": plan,
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        """Restore :meth:`state_dict`'s leaves.  A state resumes on the
+        device type that wrote it (a generator's state has that device's
+        form): another device type raises, naming both."""
+        here = self.generator.device.type
+        if d["device_type"] != here:
+            raise ValueError(
+                f"the loop state was written on device type "
+                f"{d['device_type']!r} and cannot resume on {here!r}: a "
+                f"checkpoint resumes on the device type that wrote it")
+        self.t = int(d["t"])
+        self.cum_E = float(d["cum_E"])
+        self.cum_D = float(d["cum_D"])
+        self.prev_agg = None if int(d["prev_agg"]) < 0 else \
+            int(d["prev_agg"])
+        self.last_acc = float(d["last_acc"])
+        self.stopped = bool(int(d["stopped"]))
+        self.rng = _rng_from_state_dict(d["rng"])
+        self.generator.set_state(torch.as_tensor(d["generator"]))
+        plane = as_plane(self.params)
+        data = d["params_plane"]
+        if not isinstance(data, torch.Tensor):      # numpy: copied
+            data = torch.from_numpy(np.array(data, dtype=np.float32))
+        self.params = ParamPlane(data=data.to(plane.data.device),
+                                 spec=plane.spec)
+        self.plan = RoundPlan.from_w(
+            {k: np.array(v) for k, v in d["plan"].items()}) \
+            if d["plan"] else None
+
 
 @dataclasses.dataclass
 class StagedRound:
@@ -496,6 +636,10 @@ class StagedRound:
     n_dc: int
     events: object
     t0: float
+    # --- per-round client sampling (EngineOptions.cohort_size) ---
+    cohort: Optional[np.ndarray] = None   # sorted drawn UE indices, or None
+    sub_net: object = None                # topology.subnetwork view
+    sub_plan: Optional[RoundPlan] = None  # the cohort-dims plan (costing)
 
 
 class Engine:
@@ -542,13 +686,17 @@ class Engine:
         return callback
 
     def decide(self, net_t, D_bar, t: int,
-               prev_plan: Optional[RoundPlan]) -> RoundPlan:
+               prev_plan: Optional[RoundPlan], *, consts=None) -> RoundPlan:
         """The strategy's plan for round ``t``.  ``D_bar`` reaches the
         strategy as a CPU tensor; ``cefl`` moves it to the engine's device
-        (``ctx.device``) and solves there."""
-        ctx = DecisionContext(round=t, consts=self.consts, ow=self.ow,
-                              opts=self.opts, prev_plan=prev_plan,
-                              device=self.device)
+        (``ctx.device``) and solves there.  ``consts`` overrides the
+        engine's MLConstants for this call: the cohort path hands in
+        constants gathered to the cohort's per-DPU rows."""
+        ctx = DecisionContext(round=t,
+                              consts=self.consts if consts is None
+                              else consts,
+                              ow=self.ow, opts=self.opts,
+                              prev_plan=prev_plan, device=self.device)
         plan = self.strategy.decide(
             net_t, torch.as_tensor(D_bar, dtype=torch.float32), ctx)
         if self.validate_plans:
@@ -584,21 +732,73 @@ class Engine:
                          generator=generator, params=plane,
                          loss_fn=loss_fn, eval_fn=eval_fn)
 
+    def _cohort_consts(self, n_ue: int, cohort: np.ndarray):
+        """MLConstants with the per-DPU arrays gathered to the cohort's
+        (K + S) rows (scalar / mis-sized fields pass through)."""
+        c = self.consts
+
+        def gather(a):
+            a = np.asarray(a)
+            if a.ndim == 0 or a.shape[0] < n_ue:
+                return a
+            return np.concatenate([a[:n_ue][cohort], a[n_ue:]])
+
+        return dataclasses.replace(c, theta_i=gather(c.theta_i),
+                                   sigma_i=gather(c.sigma_i))
+
     def begin_round(self, state: LoopState, online_datasets) -> StagedRound:
-        """Host side of round ``state.t``: scenario tick, plan decision,
-        offloading realization.  Mutates ``state`` (rng, plan)."""
+        """Host side of round ``state.t``: scenario tick, cohort draw,
+        plan decision, offloading realization.  Mutates ``state`` (rng,
+        plan)."""
+        opts = self.opts
         t = state.t
         t0 = time.time()
         net_t, data_per_ue, events = self.scenario.step(
             t, online_datasets, state.rng)
+        N = len(data_per_ue)
+        cohort = sub_net = sub_plan = None
+        if opts.cohort_size is not None and opts.cohort_size < N:
+            # per-round client sampling: K UEs drawn uniformly without
+            # replacement; the rest observe no round data, so the
+            # executors' live-DPU filter drops them before any device
+            # work and the solver sees only the (K, B, S) subproblem.
+            # The rng draw happens ONLY on this branch, so cohort-off
+            # runs keep their seeded traces bit-identical.
+            if opts.distributed_solver:
+                raise ValueError(
+                    "cohort_size is incompatible with distributed_solver: "
+                    "the cohort subnetwork has no consensus graph")
+            cohort = np.sort(state.rng.choice(N, int(opts.cohort_size),
+                                              replace=False))
+            mask = np.zeros(N, bool)
+            mask[cohort] = True
+            data_per_ue = [d if mask[n] else
+                           {k: np.asarray(v)[:0] for k, v in d.items()}
+                           for n, d in enumerate(data_per_ue)]
+            sub_net = subnetwork(net_t, cohort)
         D_bar = np.array([len(d["y"]) for d in data_per_ue], float)
-        if state.plan is None or t % self.opts.reoptimize_every == 0:
-            state.plan = self.decide(net_t, D_bar, t, prev_plan=state.plan)
+        if state.plan is None or t % opts.reoptimize_every == 0:
+            if cohort is None:
+                state.plan = self.decide(net_t, D_bar, t,
+                                         prev_plan=state.plan)
+            else:
+                # gather -> solve the K-UE subproblem -> scatter
+                sub_prev = None if state.plan is None else \
+                    _gather_plan(state.plan, cohort, N)
+                sub_plan = self.decide(
+                    sub_net, D_bar[cohort], t, prev_plan=sub_prev,
+                    consts=self._cohort_consts(N, cohort))
+                state.plan = _scatter_plan(sub_plan, cohort, net_t, opts)
+                if self.validate_plans:
+                    state.plan.validate(net_t)
+        elif cohort is not None:
+            sub_plan = _gather_plan(state.plan, cohort, N)
         ue_data, dc_data = realize_offloading(state.rng, data_per_ue,
                                               state.plan, net_t)
         return StagedRound(t=t, net_t=net_t, D_bar=D_bar, plan=state.plan,
                            datasets=ue_data + dc_data, n_dc=len(dc_data),
-                           events=events, t0=t0)
+                           events=events, t0=t0, cohort=cohort,
+                           sub_net=sub_net, sub_plan=sub_plan)
 
     def should_eval(self, t: int) -> bool:
         every = max(1, self.opts.eval_every)
@@ -627,14 +827,26 @@ class Engine:
         """Account the finished round: costs, eval (per the cadence),
         report, callbacks.  Advances ``state.t``."""
         plan = staged.plan
-        w = plan.to_w()
-        if staged.events.compute_scale:
+        scale = tuple(staged.events.compute_scale)
+        if staged.cohort is not None:
+            # cohort round: charge the K-UE subproblem, not all N UEs'
+            # model-upload paths (non-cohort UEs transmit nothing)
+            w = staged.sub_plan.to_w()
+            cost_net = staged.sub_net
+            cost_D = staged.D_bar[staged.cohort]
+            if scale:
+                scale = tuple(np.asarray(scale)[staged.cohort])
+        else:
+            w = plan.to_w()
+            cost_net = staged.net_t
+            cost_D = staged.D_bar
+        if scale:
             # stragglers: the plan's idealized f_n vs the realized rate,
             # charged through the Sec. II-E cost model (compute delay ~
             # 1/f_n, compute energy ~ f_n^2)
-            w["f_n"] = w["f_n"] * torch.as_tensor(
-                staged.events.compute_scale, dtype=torch.float32)
-        costs = network_costs(w, staged.net_t, staged.D_bar)
+            w["f_n"] = w["f_n"] * torch.as_tensor(scale,
+                                                  dtype=torch.float32)
+        costs = network_costs(w, cost_net, cost_D)
         E = float(round_energy(costs, self.ow.xi3_sub))
         Dl = float(round_delay(costs))
         state.cum_E += E

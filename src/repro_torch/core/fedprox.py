@@ -22,14 +22,21 @@ a leading DPU axis G, a batch of ``(G, B, ...)`` tensors and ``(G, B)``
 weights, and returns ``(G,)`` losses (``models.classifier.classifier_loss``
 does).
 
-Mini-batches are drawn from a ``torch.Generator`` on the data's device;
-its draws differ from the JAX package's ``jax.random`` streams.
+Mini-batches are drawn from a ``torch.Generator`` on the data's device,
+one ``torch.rand((gamma, D_i))`` per DPU in group order; its draws differ
+from the JAX package's ``jax.random`` streams.
+
+Entry points: :func:`local_round_plane` (a fused single-group round),
+:func:`local_train_batched` (a group) and :func:`train_multi_staged` (a
+staged group whose elements each carry their own global model: the
+cross-run form of the multi-seed sweep).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -59,6 +66,25 @@ def batch_size(num_examples: int, m_frac: float) -> int:
     if num_examples <= 0:
         return 0
     return max(1, min(num_examples, int(round(m_frac * num_examples))))
+
+
+def _draw_steps(generator: torch.Generator, num_examples: int, bsz: int,
+                steps: int, device) -> torch.Tensor:
+    """``steps`` uniform without-replacement draws of ``bsz`` of
+    ``num_examples`` indices: ONE ``torch.rand((steps, D))`` call on
+    ``generator``, argsorted per row.  Returns ``(steps, bsz)`` int64."""
+    keys = torch.rand((steps, num_examples), generator=generator,
+                      device=device)
+    return torch.argsort(keys, dim=1)[:, :bsz]
+
+
+def step_means(losses: torch.Tensor) -> np.ndarray:
+    """Per-DPU mean over the gamma steps of a ``(gamma, G)`` loss stack
+    (one host sync), each column reduced on its own, so a DPU's mean does
+    not depend on how many DPUs share its group."""
+    host = losses.cpu().numpy()
+    return np.array([host[:, j].mean() for j in range(host.shape[1])],
+                    dtype=host.dtype)
 
 
 def _bucket(n: int) -> int:
@@ -112,6 +138,17 @@ def _plane_train_core(loss_fn: Callable, spec):
     return run
 
 
+def _aggregate_group(anchor, acc, a, w_abs, theta_eta):
+    """The fused round's eq. 10 + eq. 11 on the device: d = acc/||a||_1,
+    the absolute weights ``w_abs`` normalized once, and one
+    ``nova_aggregate`` launch at the global model ``anchor``."""
+    a = torch.as_tensor(a, dtype=torch.float32, device=acc.device)
+    d = acc / torch.sum(a)
+    w_abs = torch.as_tensor(w_abs, dtype=torch.float32, device=acc.device)
+    w = w_abs / torch.sum(w_abs)              # the single normalization
+    return ops.nova_aggregate_plane(anchor, d, w, theta_eta)
+
+
 def _plane_round_fn(loss_fn: Callable, spec, eval_fn=None):
     """A whole homogeneous-group round: the gamma-step training loop, the
     eq.-10 normalization d = acc/||a||_1, the eq.-11 aggregation at the
@@ -125,12 +162,7 @@ def _plane_round_fn(loss_fn: Callable, spec, eval_fn=None):
                   w_abs, theta_eta):
         _p, acc, losses = run(p_stack, anchor, data_stack, idx, weights, a,
                               eta, mu)
-        a = torch.as_tensor(a, dtype=torch.float32, device=acc.device)
-        d = acc / torch.sum(a)
-        w_abs = torch.as_tensor(w_abs, dtype=torch.float32,
-                                device=acc.device)
-        w = w_abs / torch.sum(w_abs)          # the single normalization
-        new = ops.nova_aggregate_plane(anchor, d, w, theta_eta)
+        new = _aggregate_group(anchor, acc, a, w_abs, theta_eta)
         if eval_fn is None:
             return new, losses, ()
         with torch.no_grad():
@@ -139,13 +171,9 @@ def _plane_round_fn(loss_fn: Callable, spec, eval_fn=None):
     return round_run
 
 
-def _stage_group_batches(datasets, generator, Ds, bucket, gamma, m_frac,
-                         device):
-    """Stage a group's round data on ``device``: the datasets copied into
-    one zero-padded ``(G, Db, ...)`` stack (Db a power of two), plus
-    ``(gamma, G, bucket)`` mini-batch index/weight arrays.  Each DPU's
-    gamma without-replacement draws come from ``generator`` (on
-    ``device``); padded slots gather example 0 with weight 0."""
+def _stack_data(datasets, Ds, device) -> dict:
+    """A group's round data copied into one zero-padded ``(G, Db, ...)``
+    stack per field on ``device`` (Db a power of two)."""
     G = len(datasets)
     Db = _bucket(max(Ds))
     data_stack = {}
@@ -156,14 +184,32 @@ def _stage_group_batches(datasets, generator, Ds, bucket, gamma, m_frac,
         for j, d in enumerate(datasets):
             stack[j, :Ds[j]].copy_(torch.as_tensor(d[name]))
         data_stack[name] = stack
+    return data_stack
+
+
+def _draw_indices(generator, Ds, bucket, gamma, m_frac, device):
+    """``(gamma, G, bucket)`` mini-batch index/weight arrays of a group:
+    each DPU's gamma draws come from ``generator`` (on ``device``), one
+    call per DPU in group order; padded slots gather example 0 with
+    weight 0.  The draws depend on their order and shapes only, so DPUs
+    drawn one at a time from the same generator get the same indices."""
+    G = len(Ds)
     idx = torch.zeros((gamma, G, bucket), dtype=torch.int64, device=device)
     wts = torch.zeros((gamma, G, bucket), dtype=torch.float32, device=device)
     for j in range(G):
         bsz = batch_size(Ds[j], m_frac)
-        keys = torch.rand((gamma, Ds[j]), generator=generator, device=device)
-        idx[:, j, :bsz] = torch.argsort(keys, dim=1)[:, :bsz]
+        idx[:, j, :bsz] = _draw_steps(generator, Ds[j], bsz, gamma, device)
         wts[:, j, :bsz] = 1.0
-    return data_stack, idx, wts
+    return idx, wts
+
+
+def _stage_group_batches(datasets, generator, Ds, bucket, gamma, m_frac,
+                         device):
+    """Stage a group's round data on ``device``: the zero-padded data
+    stack (:func:`_stack_data`) and the mini-batch index/weight arrays
+    (:func:`_draw_indices`)."""
+    idx, wts = _draw_indices(generator, Ds, bucket, gamma, m_frac, device)
+    return _stack_data(datasets, Ds, device), idx, wts
 
 
 def _group_layout(datasets, m_frac):
@@ -186,8 +232,8 @@ def local_round_plane(params, loss_fn: Callable, datasets, *, gamma: int,
     ``aggregation.aggregate`` + ``eval_fn``.
 
     Returns ``(new_plane, per_dpu_mean_losses, acc)``: the losses are a
-    host ``(G,)`` array (mean over the gamma steps) and ``acc`` is None
-    unless ``eval_fn`` was given."""
+    host ``(G,)`` array (mean over the gamma steps, :func:`step_means`)
+    and ``acc`` is None unless ``eval_fn`` was given."""
     plane = as_plane(params)
     dev = plane.data.device
     G = len(datasets)
@@ -200,31 +246,38 @@ def local_round_plane(params, loss_fn: Callable, datasets, *, gamma: int,
     new_data, losses, acc = run(
         p0, plane.data, data_stack, idx, weights, a, eta, mu,
         torch.tensor(Ds, dtype=torch.float32), theta * eta)
-    mean_loss = losses.cpu().numpy().mean(axis=0)          # one sync
-    return (plane.with_data(new_data), mean_loss,
+    return (plane.with_data(new_data), step_means(losses),
             None if eval_fn is None else float(acc))
+
+
+def _group_results(spec, p_stack, acc, losses, Ds, *, gamma, m_frac, eta,
+                   mu):
+    """One plane-backed :class:`LocalResult` per element of a trained
+    group: d_i = acc_i / ||a||_1 (eq. 10), the loss the mean over the
+    gamma steps."""
+    a1 = float(torch.sum(a_coefficients(gamma, eta, mu)))
+    d_stack = acc / a1
+    mean_loss = step_means(losses)
+    return [LocalResult(
+        params=ParamPlane(data=p_stack[j], spec=spec),
+        d_i=ParamPlane(data=d_stack[j], spec=spec),
+        num_examples=Ds[j], gamma=gamma,
+        sgd_flops=float(gamma) * m_frac * Ds[j],
+        loss=float(mean_loss[j])) for j in range(len(Ds))]
 
 
 def _train_group_plane(plane: ParamPlane, loss_fn, staged, Ds, *, gamma,
                        m_frac, eta, mu):
     """Train a group from its staged ``(data_stack, idx, weights)`` and
     return one plane-backed :class:`LocalResult` per DPU."""
-    spec = plane.spec
     G = len(Ds)
     p0 = plane.broadcast(G).data.contiguous()
-    a = a_coefficients(gamma, eta, mu)
-    a1 = float(torch.sum(a))
     data_stack, idx, weights = staged
-    p_stack, acc, losses = _plane_train_core(loss_fn, spec)(
-        p0, plane.data, data_stack, idx, weights, a, eta, mu)
-    d_stack = acc / a1
-    mean_loss = losses.cpu().numpy().mean(axis=0)           # (G,)
-    return [LocalResult(
-        params=ParamPlane(data=p_stack[j], spec=spec),
-        d_i=ParamPlane(data=d_stack[j], spec=spec),
-        num_examples=Ds[j], gamma=gamma,
-        sgd_flops=float(gamma) * m_frac * Ds[j],
-        loss=float(mean_loss[j])) for j in range(G)]
+    p_stack, acc, losses = _plane_train_core(loss_fn, plane.spec)(
+        p0, plane.data, data_stack, idx, weights,
+        a_coefficients(gamma, eta, mu), eta, mu)
+    return _group_results(plane.spec, p_stack, acc, losses, Ds, gamma=gamma,
+                          m_frac=m_frac, eta=eta, mu=mu)
 
 
 def _local_train_batched_plane(params, loss_fn, datasets, *, gamma, m_frac,
@@ -269,3 +322,20 @@ def local_train_batched(params, loss_fn: Callable, datasets, *, gamma: int,
     return _local_train_batched_plane(params, loss_fn, datasets, gamma=gamma,
                                       m_frac=m_frac, eta=eta, mu=mu,
                                       generator=generator)
+
+
+def train_multi_staged(anchors: torch.Tensor, spec, loss_fn: Callable,
+                       data_stack: dict, idx, weights, *, gamma: int,
+                       eta: float, mu: float):
+    """Train a staged group whose elements carry their OWN global model:
+    ``anchors`` is ``(G, R, LANE)``, element j starting from and proximal
+    to ``anchors[j]``, through the per-DPU-anchor form of
+    ``fedprox_accum`` (one launch per local step for the whole group).
+    ``data_stack`` / ``idx`` / ``weights`` as :func:`_stage_group_batches`
+    gives them.  Returns the raw ``(p_stack, acc, losses)``: the final
+    planes, the eq.-10 numerators and the ``(gamma, G)`` step losses."""
+    p0 = anchors.contiguous()
+    return _plane_train_core(loss_fn, spec)(
+        p0, p0, data_stack, idx, weights, a_coefficients(gamma, eta, mu),
+        eta, mu)
+

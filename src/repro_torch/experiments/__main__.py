@@ -7,24 +7,36 @@
     python -m repro_torch.experiments run quickstart --device cpu
     python -m repro_torch.experiments run campus_walk_vs_fixed \\
         --set strategy=fixed:0 --seeds 0,1 --set engine.rounds=10
+    python -m repro_torch.experiments run sweep_smoke --device cpu \
+        --executor vmap --trace out/trace.jsonl
+    python -m repro_torch.experiments run sweep_smoke --device cpu \
+        --checkpoint out/ck --stop-after 2
+    python -m repro_torch.experiments run sweep_smoke --device cpu \
+        --checkpoint out/ck --resume
     python -m repro_torch.experiments validate paper_table1 --device cpu
 
 ``NAME`` is a preset (``list`` shows them) or a path to a spec JSON
 (written by ``show`` / ``--dump``).  ``--set`` takes dotted spec paths.
-``run`` runs each seed in turn through the engine; ``--device`` is
-``cuda`` unless given, and a CUDA run without a card raises.  The
-reference's sweep executors, checkpoints and resume are ROADMAP queue 1
-item 4.
+``run`` runs every seed as a sweep (``--executor vmap`` by default, or
+``sequential``); a single seed with ``--executor sequential`` and no
+checkpoint flag runs through the engine with per-round lines.
+``--checkpoint DIR`` keeps full-state snapshots (every
+``--checkpoint-every`` rounds, and at ``--stop-after N``); ``--resume``
+continues from the snapshot and appends to the ``--trace`` file.
+``--device`` is ``cuda`` unless given, and a CUDA run without a card
+raises.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
 from repro_torch.experiments import (TraceSink, available_experiments,
                                      build_context, from_json,
-                                     get_experiment, run as run_one, to_json)
+                                     get_experiment, run as run_one, sweep,
+                                     to_json)
 
 
 def _load_spec(name: str):
@@ -77,16 +89,32 @@ def _cmd_run(args):
     if args.dump:
         with open(args.dump, "w") as f:
             f.write(to_json(spec))
-    trace = TraceSink(args.trace) if args.trace else None
+    if (args.checkpoint_every or args.stop_after or args.resume) \
+            and not args.checkpoint:
+        raise SystemExit("--checkpoint-every/--stop-after/--resume need "
+                         "--checkpoint <dir>")
+    # append on resume: the pre-kill rounds are already in the file
+    trace = TraceSink(args.trace, append=args.resume) if args.trace \
+        else None
     try:
-        for seed in spec.run_seeds:
+        if len(spec.run_seeds) == 1 and not (args.checkpoint
+                                             or args.executor == "vmap"):
             _print_header()
-            res = run_one(spec, seed=seed, device=args.device, trace=trace,
+            res = run_one(spec, device=args.device, trace=trace,
                           callbacks=(_print_round,))
-            _print_final(spec.name, seed, res)
+            _print_final(spec.name, spec.run_seeds[0], res)
+            return 0
+        result = sweep(spec, executor=args.executor, device=args.device,
+                       trace=trace, checkpoint_dir=args.checkpoint,
+                       checkpoint_every=args.checkpoint_every,
+                       resume=args.resume, stop_after=args.stop_after)
     finally:
         if trace:
             trace.close()
+    for key, res in result.runs:
+        _print_final(key.experiment, key.seed, res)
+    print("\naggregate stats:")
+    print(json.dumps(result.stats(), indent=1))
     return 0
 
 
@@ -134,8 +162,15 @@ def main(argv=None):
                            help="torch device (default cuda; a CPU run "
                                 "must be asked for: --device cpu)")
         if cmd == "run":
+            p.add_argument("--executor", default="vmap",
+                           choices=("vmap", "sequential"))
             p.add_argument("--trace", help="JSONL trace output path")
             p.add_argument("--dump", help="write the resolved spec JSON")
+            p.add_argument("--checkpoint", help="full-state snapshot dir")
+            p.add_argument("--checkpoint-every", type=int, default=0)
+            p.add_argument("--resume", action="store_true")
+            p.add_argument("--stop-after", type=int, default=None,
+                           help="stop (with snapshot) after N rounds")
     args = ap.parse_args(argv)
     if args.cmd == "list":
         return _cmd_list(args)

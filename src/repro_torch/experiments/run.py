@@ -1,20 +1,30 @@
-"""The experiment entry point ``run(spec)``.  Counterpart of
-``repro.experiments.run``.
+"""The experiment entry points: ``run(spec)`` and ``sweep(specs)``.
+Counterpart of ``repro.experiments.run``.
 
     from repro_torch import experiments
 
-    result = experiments.run("quickstart", device="cpu")   # one run
+    result = experiments.run("quickstart", device="cpu")     # one run
+    sweep = experiments.sweep("sweep_smoke", device="cpu")   # all seeds
+    sweep = experiments.sweep([spec_a, spec_b], device="cpu")  # a grid
+    sweep.stats()
 
-``sweep`` (every seed of a spec grid, batched across seeds, with
-checkpoints and resume) is ROADMAP queue 1 item 4 and raises until then.
+``sweep`` executes every seed of every spec: device work batched across
+seeds by the :class:`~repro_torch.experiments.sweep.VmapSweepExecutor` by
+default (``executor="sequential"`` runs each seed as ``run`` does).
+``checkpoint_dir`` / ``checkpoint_every`` add full-state snapshots;
+``resume=True`` continues a killed sweep to results identical to an
+uninterrupted one.  Both run on ``device`` (``"cuda"`` by default; a CPU
+run must be asked for).
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import os
+from typing import Optional, Sequence, Union
 
 from repro_torch.core.api import RunResult
 from repro_torch.experiments.build import build_context
 from repro_torch.experiments.spec import ExperimentSpec, get_experiment
+from repro_torch.experiments.sweep import SweepResult, get_sweep_executor
 from repro_torch.experiments.trace import TraceSink, round_record
 
 SpecLike = Union[str, dict, ExperimentSpec]
@@ -38,9 +48,35 @@ def run(spec: SpecLike, *, seed: Optional[int] = None, device="cuda",
                       loss_fn=ctx.loss_fn, eval_fn=ctx.eval_fn)
 
 
-def sweep(*args, **kwargs):
-    """Every seed of a spec grid: not ported yet (ROADMAP queue 1 item 4,
-    multi-seed sweeps and resume).  Loop over :func:`run` meanwhile."""
-    raise NotImplementedError(
-        "repro_torch.experiments.sweep is ROADMAP queue 1 item 4 (multi-seed "
-        "sweeps and resume); call run(spec, seed=s) for each seed")
+def sweep(specs: Union[SpecLike, Sequence[SpecLike]], *,
+          executor="vmap", device="cuda",
+          trace: Optional[TraceSink] = None,
+          checkpoint_dir=None, checkpoint_every: int = 0,
+          resume: bool = False,
+          stop_after: Optional[int] = None) -> SweepResult:
+    """Run every seed of one spec, or of a whole spec grid, on ``device``
+    and return a typed :class:`SweepResult`.
+
+    With multiple specs, each spec's seed axis is swept in turn (the
+    batch axis is per spec: different specs may have different shapes);
+    checkpoints go to ``checkpoint_dir/<spec.name>``.
+    """
+    if isinstance(specs, (str, dict, ExperimentSpec)):
+        specs = [specs]
+    specs = [get_experiment(s) for s in specs]
+    names = [s.name for s in specs]
+    if len(set(names)) != len(names):
+        raise ValueError(f"sweep specs must have unique names: {names}")
+    result: Optional[SweepResult] = None
+    for spec in specs:
+        ckpt = None
+        if checkpoint_dir is not None:
+            ckpt = checkpoint_dir if len(specs) == 1 else \
+                os.path.join(checkpoint_dir, spec.name)
+        ex = get_sweep_executor(executor, checkpoint_dir=ckpt,
+                                checkpoint_every=checkpoint_every,
+                                resume=resume, stop_after=stop_after)
+        ctx = build_context(spec, device=device)
+        part = ex.run_sweep(ctx, trace=trace)
+        result = part if result is None else result.merged(part)
+    return result

@@ -112,6 +112,9 @@ class EngineSpec:
     robust_agg: str = "none"        # byzantine counter: "none" /
                                     # "trimmed_mean" / "median"
     trim_frac: float = 0.1
+    cohort_size: Optional[int] = None
+                                    # per-round client sampling (K UEs drawn
+                                    # per round); None -> full participation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +148,7 @@ class ExperimentSpec:
             gamma_default=e.gamma_default, m_default=e.m_default,
             rate_jitter=e.rate_jitter, seed=int(seed),
             eval_every=e.eval_every, robust_agg=e.robust_agg,
-            trim_frac=e.trim_frac)
+            trim_frac=e.trim_frac, cohort_size=e.cohort_size)
 
     @property
     def run_seeds(self) -> Tuple[int, ...]:

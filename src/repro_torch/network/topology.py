@@ -93,6 +93,23 @@ def pathloss_gain(d_m):
     return 10.0 ** (-(128.1 + 37.6 * np.log10(d_km)) / 10.0)
 
 
+def subnetwork(net: Network, ue_idx) -> Network:
+    """The network restricted to the UE subset ``ue_idx`` (BSs/DCs kept).
+
+    The cohort-sampling view: per-round client sampling solves the
+    orchestration problem over the K drawn UEs only, so every UE-indexed
+    rate matrix is gathered to the cohort rows.  The consensus graph is
+    dropped (a UE-subset of H is not a valid consensus topology; cohort
+    runs use the centralized solver).
+    """
+    ue_idx = np.asarray(ue_idx, int)
+    cfg = dataclasses.replace(net.cfg, num_ue=int(ue_idx.shape[0]))
+    return dataclasses.replace(
+        net, cfg=cfg, R_nb=net.R_nb[ue_idx], R_bn=net.R_bn[:, ue_idx],
+        subnet_of_ue=net.subnet_of_ue[ue_idx],
+        adjacency=np.zeros((0, 0), dtype=int))
+
+
 def make_network(cfg: NetworkConfig = NetworkConfig(),
                  edge_prob: float = 0.3, *,
                  consensus: bool = True) -> Network:

@@ -60,8 +60,18 @@ def resolve_ues(n_ue: int, frac: float,
     return tuple(sorted({int(i) for i in idx}))
 
 
+class _Stateless:
+    """Adversaries whose only state is the bind-time compromised set."""
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, d: dict) -> None:
+        pass
+
+
 @dataclasses.dataclass
-class ByzantineUpdate:
+class ByzantineUpdate(_Stateless):
     """Update-level corruption at the compromised UEs, from ``start`` on.
 
     ``mode="sign_flip"``: the reported accumulated gradient becomes
@@ -97,7 +107,7 @@ class ByzantineUpdate:
 
 
 @dataclasses.dataclass
-class LabelPoison:
+class LabelPoison(_Stateless):
     """Label-flipping data poisoning (y -> num_classes-1-y) at the
     compromised UEs, from ``start`` on."""
     frac: float = 0.3
@@ -119,7 +129,7 @@ class LabelPoison:
 
 
 @dataclasses.dataclass
-class Straggler:
+class Straggler(_Stateless):
     """Compute-rate degradation: afflicted UEs realize ``f_n / slowdown``
     — charged through the existing cost model (``network_costs``), where
     compute delay scales as 1/f_n and compute energy as f_n^2."""
@@ -179,6 +189,22 @@ class Dropout:
 
     def events(self):
         return self._joined, self._left
+
+    def state_dict(self) -> dict:
+        if self._down is None:
+            return {"initialized": 0}
+        return {"initialized": 1, "down": np.array(self._down, bool),
+                "joined": np.asarray(self._joined, np.int64),
+                "left": np.asarray(self._left, np.int64)}
+
+    def load_state_dict(self, d: dict) -> None:
+        if not int(d["initialized"]):
+            self._down = None
+            self._joined, self._left = (), ()
+            return
+        self._down = np.asarray(d["down"], bool)
+        self._joined = tuple(int(u) for u in np.asarray(d["joined"]))
+        self._left = tuple(int(u) for u in np.asarray(d["left"]))
 
     def apply(self, t, ue, data, rng):
         if self._down is not None and self._down[ue]:

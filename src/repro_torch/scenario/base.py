@@ -86,20 +86,31 @@ def get_scenario(spec) -> Scenario:
 
 @register_scenario("static")
 class StaticScenario:
-    """The frozen world: per-round lognormal rate jitter of
-    ``opts.rate_jitter`` (``Network.resample_rates``) and untouched online
-    datasets."""
+    """The frozen world: per-round lognormal rate jitter
+    (``Network.resample_rates``) and untouched online datasets.  The
+    jitter is the ``static:<jitter>`` argument when given (the fuzzer
+    draws it), else ``opts.rate_jitter``."""
 
-    def __init__(self):
+    def __init__(self, jitter=""):
+        self._jitter_arg = float(jitter) if jitter != "" else None
         self._net = None
         self._jitter = None
 
     def bind(self, net, opts):
         self._net = net
-        self._jitter = opts.rate_jitter
+        self._jitter = self._jitter_arg if self._jitter_arg is not None \
+            else opts.rate_jitter
 
     def step(self, t, online_datasets, rng):
         data = [ds.step() for ds in online_datasets]
         net_t = self._net.resample_rates(rng, self._jitter)
         return net_t, data, ScenarioEvents(round=t,
                                            active_ues=len(online_datasets))
+
+    # full-state resume: the static world keeps no mutable state beyond
+    # what bind() derives; the jitter draws live on the engine rng
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, d: dict) -> None:
+        pass

@@ -51,6 +51,13 @@ class LabelRotation:
         x, y = _as_np(data)
         return {"x": x, "y": (y + k) % self.num_classes}
 
+    # stateless: the rotation is a pure function of the round index
+    def state_dict(self):
+        return {}
+
+    def load_state_dict(self, d):
+        pass
+
 
 @dataclasses.dataclass
 class ArrivalBurst:
@@ -79,6 +86,13 @@ class ArrivalBurst:
         idx = rng.choice(D, size=n, replace=True) if n > D \
             else rng.permutation(D)[:n]
         return {"x": x[idx], "y": y[idx]}
+
+    # stateless: window membership is a pure function of the round index
+    def state_dict(self):
+        return {}
+
+    def load_state_dict(self, d):
+        pass
 
 
 @dataclasses.dataclass
@@ -117,6 +131,24 @@ class JoinLeave:
 
     def events(self):
         return self._joined, self._left
+
+    def state_dict(self):
+        if self._active is None:
+            return {"initialized": 0}
+        # copy: ``begin_round`` mutates ``_active`` in place, and a
+        # snapshot must not alias live state
+        return {"initialized": 1, "active": np.array(self._active, bool),
+                "joined": np.asarray(self._joined, np.int64),
+                "left": np.asarray(self._left, np.int64)}
+
+    def load_state_dict(self, d):
+        if not int(d["initialized"]):
+            self._active = None
+            self._joined, self._left = (), ()
+            return
+        self._active = np.array(d["active"], bool)
+        self._joined = tuple(int(u) for u in np.asarray(d["joined"]))
+        self._left = tuple(int(u) for u in np.asarray(d["left"]))
 
     def apply(self, t, ue, data, rng):
         if self._active is not None and not self._active[ue]:

@@ -121,6 +121,46 @@ class DynamicScenario:
         return np.linalg.norm(
             lay.ue_pos[:, None, :] - lay.bs_pos[None, :, :], axis=-1)
 
+    # ------------------------------------------- full-state resume ------
+
+    def state_dict(self) -> dict:
+        """Spatial + association + schedule state for mid-run resume
+        (``repro_torch.experiments.runstate``).  The engine rng is NOT
+        here: it lives on the engine's LoopState; restoring both
+        reproduces the remaining rounds bit-exactly."""
+        out = {"initialized": int(self._layout is not None)}
+        if self._layout is not None:
+            lay = self._layout
+            out["layout"] = {"area": float(lay.area),
+                             "dc_pos": np.asarray(lay.dc_pos),
+                             "bs_pos": np.asarray(lay.bs_pos),
+                             "ue_pos": np.asarray(lay.ue_pos)}
+            out["serving"] = np.asarray(self._serving)
+        if self.mobility is not None:
+            out["mobility"] = self.mobility.state_dict()
+        out["schedules"] = {
+            str(i): sch.state_dict()
+            for i, sch in enumerate(self.schedules)
+            if hasattr(sch, "state_dict")}
+        return out
+
+    def load_state_dict(self, d: dict) -> None:
+        if int(d["initialized"]):
+            lay = d["layout"]
+            self._layout = FieldLayout(
+                area=float(lay["area"]), dc_pos=np.asarray(lay["dc_pos"]),
+                bs_pos=np.asarray(lay["bs_pos"]),
+                ue_pos=np.asarray(lay["ue_pos"]))
+            self._serving = np.asarray(d["serving"])
+        else:
+            self._layout = None
+            self._serving = None
+        if self.mobility is not None and "mobility" in d:
+            self.mobility.load_state_dict(d["mobility"])
+        for i, sch in enumerate(self.schedules):
+            if hasattr(sch, "load_state_dict") and str(i) in d["schedules"]:
+                sch.load_state_dict(d["schedules"][str(i)])
+
     # ------------------------------------------------------------- step --
 
     def step(self, t, online_datasets, rng):

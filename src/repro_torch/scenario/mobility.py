@@ -65,6 +65,14 @@ class MobilityModel:
              dt: float) -> np.ndarray:
         raise NotImplementedError
 
+    # full-state resume hooks (repro_torch.experiments.runstate): models
+    # carry only numpy arrays, so the default covers every stateless model
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, d: dict) -> None:
+        pass
+
 
 class RandomWaypoint(MobilityModel):
     """Random-waypoint mobility with optional hotspot attraction.
@@ -101,6 +109,21 @@ class RandomWaypoint(MobilityModel):
         n = len(pos)
         self._wp, self._v = self._new_leg(0, rng, n, area)
         self._pause_left = np.zeros(n)
+
+    def state_dict(self):
+        if self._wp is None:
+            return {"initialized": 0}
+        return {"initialized": 1, "wp": np.asarray(self._wp),
+                "v": np.asarray(self._v),
+                "pause_left": np.asarray(self._pause_left)}
+
+    def load_state_dict(self, d):
+        if not int(d["initialized"]):
+            self._wp = self._v = self._pause_left = None
+            return
+        self._wp = np.asarray(d["wp"])
+        self._v = np.asarray(d["v"])
+        self._pause_left = np.asarray(d["pause_left"])
 
     def step(self, t, rng, pos, area, dt):
         n = len(pos)
@@ -141,6 +164,19 @@ class GaussMarkov(MobilityModel):
         dir_ = np.stack([np.cos(heading), np.sin(heading)], 1)
         self._v_mean = dir_ * self.mean_speed
         self._v = self._v_mean + rng.normal(0.0, self.sigma, (n, 2))
+
+    def state_dict(self):
+        if self._v is None:
+            return {"initialized": 0}
+        return {"initialized": 1, "v": np.asarray(self._v),
+                "v_mean": np.asarray(self._v_mean)}
+
+    def load_state_dict(self, d):
+        if not int(d["initialized"]):
+            self._v = self._v_mean = None
+            return
+        self._v = np.asarray(d["v"])
+        self._v_mean = np.asarray(d["v_mean"])
 
     def step(self, t, rng, pos, area, dt):
         a = self.alpha

@@ -51,10 +51,10 @@ from repro_torch.models import classifier as tcls
 
 torch.set_num_threads(2)
 
-# the reference's engine fields the port has no counterpart for (cohorts:
-# ROADMAP queue 1 item 3; the sharded plane: item 5; kernel dispatch and
-# the sanitizer: by device, no knob)
-JAX_ONLY_ENGINE = ("kernel_backend", "sanitize", "mesh_shape", "cohort_size")
+# the reference's engine fields the port has no counterpart for (the
+# sharded plane: ROADMAP queue 1 item 5; kernel dispatch and the
+# sanitizer: by device, no knob)
+JAX_ONLY_ENGINE = ("kernel_backend", "sanitize", "mesh_shape")
 JAX_ONLY_MODEL = ("arch", "reduced", "batch", "seq", "n_dpu", "n_micro",
                   "gamma")
 LM_PRESETS = ("lm_smoke", "lm_mamba2_130m")
@@ -93,8 +93,9 @@ def test_presets_equal_the_reference_and_round_trip_json():
     assert texp.from_json(texp.to_json(over)) == over
     with pytest.raises(KeyError, match="no field"):
         over.override(**{"engine.kernel_backend": "cpu"})
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        texp.sweep("quickstart")
+    # sweeps run (tests/test_torch_sweep.py); a grid needs unique names
+    with pytest.raises(ValueError, match="unique names"):
+        texp.sweep(["quickstart", "quickstart"], device="cpu")
 
 
 def _cli(*argv):
