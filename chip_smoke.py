@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of CE-FL (``src/repro_torch``) on one NVIDIA
 card and check it: the CE-FL rounds, the front door with the ``cefl``
-strategy, multi-seed sweeps with resume, cohorts, the scenario fuzzer and
-the LM serving path.
+strategy, multi-seed sweeps with resume, cohorts, the scenario fuzzer,
+the LM serving path and CE-FL training of mamba2-130m.
 
     python3 chip_smoke.py            # from the repo root, on a machine with
                                      # one CUDA card, nvcc and nvidia-smi
@@ -92,6 +92,24 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              version and the select timed at the path's n.  A ``cefl``
              cohort run (10 UEs drawn, 2 rounds).  Two draws of the
              scenario fuzzer.  Counters set to 0 before, read after.
+9. lm      — (runs after 8) mamba2-130m (arXiv:2405.21060, 128,983,488
+             parameters, a (126,080, 1024) f32 plane): (a) served at full
+             width and depth in bf16 through ``repro_torch.serve`` (8 x
+             512-token prompts, 32 tokens; no kernel launches: a Mamba
+             layer steps its state in plain torch); (b) 2 layers at full
+             width in f32, card against CPU: prefill and 4 decode steps,
+             one plane-form LM round (seq 128, 2 DPUs, gammas (2, 1));
+             (c) ``lm_smoke`` whole (20 rounds) and (d) ``lm_mamba2_130m``
+             at full width and depth cut to 6 of its 200 rounds (batch 8,
+             seq 512, 2 DPUs, gamma 2) through ``experiments.run``, every
+             round ``fedprox_accum`` gamma times and
+             ``nova_aggregate_stacked`` once (counters set to 0 just
+             before each run and read just after), every loss finite and
+             the last below the first; seconds per round, training
+             tokens/s, peak memory and a profiled round; (e) both kernels
+             at every shape (c) and (d) launched against their plain
+             versions, timed per call and, at the LM plane, as a run of
+             200 launches.
 4. kernels — each hand-written kernel against its plain PyTorch version on
              the same card tensors, at every shape the paths launched it
              with and at extra cases, with the tolerance stated below
@@ -1823,17 +1841,21 @@ def drive_serve_path(dev, cfg=None, runs=SERVE_RUNS, gen=SERVE_GEN,
     bf16, random weights from a seed on the card): each of ``runs`` greedy-
     generates ``gen`` tokens, with the launch counters set to 0 just
     before and read just after.  Each run must launch
-    ``swa_decode_attention`` num_layers x (gen - 1) times and no other
-    kernel; logits finite, tokens in the vocab.  Returns the summed
+    ``swa_decode_attention`` (attention layers) x (gen - 1) times and no
+    other kernel (a Mamba-2 config: no launch at all); logits finite,
+    tokens in the vocab.  Returns the summed
     launches, the kernel's launch shapes ((B, S, cache_len) -> launches),
     the per-run records, a profiled decode step and the init record."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.plane import tree_paths
+    from repro_torch.models import blocks
     from repro_torch.models import lm as L
     from repro_torch.serve import serve
 
     cfg = cfg or get_config(SERVE_ARCH)
+    n_attn = blocks.num_periods(cfg) * sum(
+        spec.kind == "A" for spec in blocks.period_spec(cfg))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = L.init_lm_params(torch.Generator(device=dev).manual_seed(0),
@@ -1861,13 +1883,14 @@ def drive_serve_path(dev, cfg=None, runs=SERVE_RUNS, gen=SERVE_GEN,
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)          # read just after
         want = dict.fromkeys(launches, 0)
-        want["swa_decode_attention"] = cfg.num_layers * (gen - 1)
+        want["swa_decode_attention"] = n_attn * (gen - 1)
         if launches != want:
             raise AssertionError(f"serve {label}: launches {launches} != "
                                  f"{want}")
         S = min(window, cache_len)
         for pos in range(P, P + gen - 1):
-            shapes[(B, S, min(pos + 1, S))] += cfg.num_layers
+            if n_attn:
+                shapes[(B, S, min(pos + 1, S))] += n_attn
         if not stats["logits_finite"]:
             raise AssertionError(f"serve {label}: logits not finite")
         lo, hi = int(tokens.min()), int(tokens.max())
@@ -2180,10 +2203,11 @@ def serve_reference_check(dev, cfg=None, layers=SERVE_CHECK["layers"],
                           prompt=SERVE_CHECK["prompt"],
                           steps=SERVE_CHECK["steps"],
                           atol=SERVE_CHECK["logits_atol"]):
-    """starcoder2-15b at full width with ``layers`` layers, float32, TF32
-    off: the same weights (made on the CPU from a seed) and prompts on the
-    card (the kernel) and on the CPU (plain versions), prefill and
-    ``steps`` decode steps, each step fed the CPU's greedy token.
+    """``cfg`` (default: starcoder2-15b at full width with ``layers``
+    layers), float32, TF32 off: the same weights (made on the CPU from a
+    seed) and prompts on the card (the kernels) and on the CPU (plain
+    versions), prefill and ``steps`` decode steps, each step fed the
+    CPU's greedy token.
     Tolerance on the logits: ``atol`` (5e-4 against logits of order 2:
     products of depth up to 24,576 summed in cuBLAS's and the CPU BLAS's
     orders through two layers, and the kernel's summation order).  The
@@ -2311,13 +2335,14 @@ def sweep_parity(vm, seq) -> dict:
 class _ShapeRecorder:
     """Wraps the kernel wrappers for the length of a ``with`` block and
     counts the shapes they launched with: fedprox_accum (G, R, anchor
-    form), nova_aggregate (n, R), and every robust_aggregate stack kept
-    (with its inputs and output) for the check against the plain
-    version."""
+    form), nova_aggregate and nova_aggregate_stacked (n, R), and every
+    robust_aggregate stack kept (with its inputs and output) for the
+    check against the plain version."""
 
     def __init__(self):
         self.shapes = {"fedprox_accum": Counter(),
-                       "nova_aggregate": Counter()}
+                       "nova_aggregate": Counter(),
+                       "nova_aggregate_stacked": Counter()}
         self.robust = []
 
     def __enter__(self):
@@ -2326,8 +2351,8 @@ class _ShapeRecorder:
         from repro_torch.kernels import robust_aggregate as kra
         self._mods = (kfp, kna, kra)
         self._real = (kfp.fedprox_accum, kna.nova_aggregate,
-                      kra.robust_aggregate)
-        real_fp, real_na, real_ra = self._real
+                      kra.robust_aggregate, kna.nova_aggregate_stacked)
+        real_fp, real_na, real_ra, real_ns = self._real
 
         def fedprox_accum(x, g, anchor, *a):
             form = "per_dpu" if anchor.dim() == 3 else "shared"
@@ -2339,6 +2364,11 @@ class _ShapeRecorder:
             self.shapes["nova_aggregate"][(d.shape[0], d.shape[1])] += 1
             return real_na(x, d, *a)
 
+        def nova_aggregate_stacked(x, d, *a):
+            self.shapes["nova_aggregate_stacked"][(d.shape[0],
+                                                   d.shape[1])] += 1
+            return real_ns(x, d, *a)
+
         def robust_aggregate(x, d, theta_eta, *, k=0, median=False):
             out = real_ra(x, d, theta_eta, k=k, median=median)
             self.robust.append((x.clone(), d.clone(), theta_eta, k, median,
@@ -2347,13 +2377,14 @@ class _ShapeRecorder:
 
         kfp.fedprox_accum = fedprox_accum
         kna.nova_aggregate = nova_aggregate
+        kna.nova_aggregate_stacked = nova_aggregate_stacked
         kra.robust_aggregate = robust_aggregate
         return self
 
     def __exit__(self, *exc):
         kfp, kna, kra = self._mods
-        kfp.fedprox_accum, kna.nova_aggregate, kra.robust_aggregate = \
-            self._real
+        (kfp.fedprox_accum, kna.nova_aggregate, kra.robust_aggregate,
+         kna.nova_aggregate_stacked) = self._real
 
 
 def _want_launches(groups_per_run, union: bool) -> int:
@@ -2718,6 +2749,364 @@ def drive_sweep_phase(dev, timer, bw, f32_rate):
         "seconds": t3 - t0}
 
 
+# ----------------------------------------- phase 9: LM training, Mamba --
+
+LM_ARCH = "mamba2-130m"
+# (a) serving: (label, requests, prompt tokens); prompts are a multiple of
+# the SSD chunk (64)
+LM_SERVE_RUNS = [("8 x 512", 8, 512)]
+# (b) card vs CPU: a 2-layer full-width f32 mamba2, prefill + 4 decode
+# steps, then one plane-form round (seq 128, 2 DPUs, gammas (2, 1))
+LM_CHECK = {"layers": 2, "batch": 2, "prompt": 64, "steps": 4, "seq": 128,
+            "gammas": (2, 1)}
+# (d) lm_mamba2_130m at full width and depth, cut to 6 of its 200 rounds
+LM_FULL_OVER = {"engine.rounds": 6}
+
+
+def lm_reference_check(dev, layers=LM_CHECK["layers"],
+                       batch=LM_CHECK["batch"], prompt=LM_CHECK["prompt"],
+                       steps=LM_CHECK["steps"], seq=LM_CHECK["seq"],
+                       gammas=LM_CHECK["gammas"]):
+    """Phase 9 (b): mamba2-130m at full width with ``layers`` layers in
+    f32, TF32 off, the same weights (made on the CPU from a seed) on the
+    card and on the CPU.  Serving: prefill and ``steps`` decode steps,
+    logits to phase 6's ``atol`` 5e-4 (``serve_reference_check``).  One
+    plane-form LM round (``experiments.lm.build_lm_step``, ``seq`` tokens,
+    2 DPUs with gammas ``gammas``): the card (kernels) against the CPU
+    (plain versions), new replica stack to rtol 1e-4, atol 1e-5 and loss
+    to rtol 1e-4, as phase 5's rounds.  Returns the errors."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.round_step import make_dpu_meta
+    from repro_torch.experiments import lm as tlm
+    from repro_torch.experiments.spec import ModelSpec
+    from repro_torch.kernels.plane import ParamPlane
+    from repro_torch.models import lm as L
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=layers)
+    serve_err = serve_reference_check(dev, cfg=cfg, batch=batch,
+                                      prompt=prompt, steps=steps)
+    m = ModelSpec(kind="lm", arch=LM_ARCH, reduced=False, batch=2 * batch,
+                  seq=seq, n_dpu=2, n_micro=1, gamma=max(gammas))
+    params = L.init_lm_params(torch.Generator().manual_seed(13), cfg,
+                              torch.float32)
+    plane = ParamPlane.from_tree(params)
+    step = tlm.build_lm_step(cfg, m, eta=3e-2, mu=0.01)
+    batch_cpu = tlm.lm_batch(cfg, m, 17, torch.device("cpu"))
+    outs = []
+    for where in (torch.device("cpu"), dev):
+        stack = plane.with_data(plane.broadcast(2).data.to(where)
+                                .contiguous())
+        meta = make_dpu_meta(2, gammas=list(gammas), device=where)
+        new, metrics = step(stack, {k: v.to(where)
+                                    for k, v in batch_cpu.items()}, meta)
+        outs.append((new.data.cpu(), float(metrics["loss"])))
+        del stack, new
+    (cn, cl), (gn, gl) = outs
+    err = float((gn - cn).abs().max())
+    torch.testing.assert_close(gn, cn, rtol=1e-4, atol=1e-5)
+    if not (np.isfinite(gl) and abs(gl - cl) <= 1e-4 * abs(cl)):
+        raise AssertionError(f"LM round loss {gl} (card) vs {cl} (CPU)")
+    log(f"  LM round ({cfg.name} x{layers} layers f32, R = "
+        f"{plane.data.shape[0]}, seq {seq}, gammas {gammas}) card vs CPU: "
+        f"replica stack max abs err {err:.3e}, loss {gl:.6f} vs {cl:.6f}")
+    del outs, plane, params
+    torch.cuda.empty_cache()
+    return {"serve_logits_max_abs_err": serve_err,
+            "round_max_abs_err": err, "round_loss": [gl, cl]}
+
+
+class _RoundCounter:
+    """Wraps ``experiments.lm.build_lm_step`` for the length of a ``with``
+    block: every round step it builds records the launch counts of its
+    call (counters before and after) and its host seconds to a
+    synchronize."""
+
+    def __init__(self):
+        self.rounds = []
+
+    def __enter__(self):
+        from repro_torch.experiments import lm as tlm
+        from repro_torch.kernels import ops
+        self._mod, self._real = tlm, tlm.build_lm_step
+        real = self._real
+
+        def build_lm_step(*a, **k):
+            step = real(*a, **k)
+
+            def counted(params, batch, meta):
+                before = dict(ops.LAUNCHES)
+                t0 = time.perf_counter()
+                out = step(params, batch, meta)
+                torch.cuda.synchronize()
+                self.rounds.append({
+                    "seconds": time.perf_counter() - t0,
+                    "launches": {n: ops.LAUNCHES[n] - before[n]
+                                 for n in before}})
+                return out
+            return counted
+
+        tlm.build_lm_step = build_lm_step
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.build_lm_step = self._real
+
+
+def _lm_run(dev, name, over, shapes):
+    """One LM preset through ``experiments.run`` (the front door) on the
+    card, counters set to 0 just before and read just after.  Every round
+    must launch ``fedprox_accum`` gamma times and
+    ``nova_aggregate_stacked`` once, and nothing else; every loss finite
+    and the last below the first (``run_lm`` raises otherwise)."""
+    from repro_torch import experiments
+    from repro_torch.experiments.lm import lm_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.plane import spec_of
+
+    spec = experiments.get_experiment(name).override(**over)
+    m = spec.model
+    cfg = lm_config(m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                       # counts to 0: the path
+    t0 = time.perf_counter()
+    with _RoundCounter() as rc, shapes:
+        result = experiments.run(spec, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)              # read just after
+    peak = torch.cuda.max_memory_allocated()
+    losses = result.series("loss")
+    want = dict.fromkeys(launches, 0)
+    want.update(fedprox_accum=m.gamma, nova_aggregate_stacked=1)
+    for t, r in enumerate(rc.rounds):
+        if r["launches"] != want:
+            raise AssertionError(f"{name} round {t}: launches "
+                                 f"{r['launches']} != {want}")
+    if len(rc.rounds) != spec.engine.rounds:
+        raise AssertionError(f"{name}: {len(rc.rounds)} round steps for "
+                             f"{spec.engine.rounds} rounds")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: losses {losses}")
+    secs = [r["seconds"] for r in rc.rounds]
+    per_round = statistics.median(secs[1:])
+    tokens = m.batch * m.seq * m.gamma
+    flat = spec_of(result.params)
+    R = flat.rows
+    rec = {"preset": name, "over": over, "arch": cfg.name,
+           "params": flat.n, "R": R, "n_dpu": m.n_dpu,
+           "batch": m.batch, "seq": m.seq, "gamma": m.gamma,
+           "rounds": spec.engine.rounds, "losses": losses,
+           "round_s": secs, "round_s_median_after_first": per_round,
+           "train_tokens_per_round": tokens,
+           "train_tokens_per_s": tokens / per_round, "wall_s": wall,
+           "peak_device_bytes": peak, "launches": launches}
+    log(f"  {name} ({cfg.name}, {flat.n:,} params, plane R = "
+        f"{R}, {m.n_dpu} DPUs, batch {m.batch} x seq {m.seq}, gamma "
+        f"{m.gamma}, {spec.engine.rounds} rounds): loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; round 0 {secs[0]:.3f} s, then "
+        f"{per_round:.3f} s median ({min(secs[1:]):.3f}-"
+        f"{max(secs[1:]):.3f}), {rec['train_tokens_per_s']:.0f} training "
+        f"tokens/s; peak {peak / 2**30:.2f} GiB; launches {launches}")
+    return rec, result
+
+
+def profile_lm_round(dev, name, over, params):
+    """One more round of the preset from ``params`` (the run's trained
+    tree, as both DPUs' replicas), after the counted run, under
+    ``torch.profiler``: wall time, device busy time and the kernels that
+    took the most device time.  The profiler on this card drops records,
+    so the launches are the counters'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import experiments
+    from repro_torch.core.round_step import make_dpu_meta
+    from repro_torch.experiments import lm as tlm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.plane import ParamPlane
+
+    spec = experiments.get_experiment(name).override(**over)
+    m = spec.model
+    cfg = tlm.lm_config(m)
+    step = tlm.build_lm_step(cfg, m, eta=spec.engine.eta, mu=spec.engine.mu)
+    plane = ParamPlane.from_tree(params)
+    stack = plane.with_data(plane.broadcast(m.n_dpu).data.contiguous())
+    del plane
+    meta = make_dpu_meta(m.n_dpu, gammas=[m.gamma] * m.n_dpu, device=dev)
+    batch = tlm.lm_batch(cfg, m, 99, dev)
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stack, metrics = step(stack, batch, meta)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counted = {n: ops.LAUNCHES[n] - before[n] for n in before}
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
+    busy_us = sum(device_us(e) for e in events)
+    top = sorted(events, key=lambda e: -device_us(e))[:15]
+    table = [{"name": e.key, "calls": e.count,
+              "device_ms": device_us(e) / 1e3} for e in top]
+    # nova_aggregate_stacked launches nova_aggregate_kernel (replicas = n)
+    mine = {n: [{"calls": e.count, "device_ms": device_us(e) / 1e3}
+                for e in events if k in e.key]
+            for n, k in (("fedprox_accum", "fedprox_accum_kernel"),
+                         ("nova_aggregate_stacked", "nova_aggregate_kernel"))}
+    log(f"  profiled {name} round: wall {wall * 1e3:.1f} ms, device busy "
+        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e3 / (wall * 1e3):.1f} "
+        f"% of wall); counted launches {counted}; the kernels in the "
+        f"trace: {mine}")
+    for r in table[:10]:
+        log(f"    {r['device_ms']:9.3f} ms  {r['calls']:5d}x  "
+            f"{r['name'][:70]}")
+    del stack
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "busy_share": busy_us / 1e3 / (wall * 1e3), "top": table,
+            "kernels_in_trace": mine, "counted_launches": counted,
+            "loss": float(metrics["loss"])}
+
+
+def lm_kernel_checks(dev, timer, run_timer, bw, f32_rate, shapes):
+    """Phase 9 (e): ``fedprox_accum`` (per-DPU anchor) and
+    ``nova_aggregate_stacked`` against their plain versions at every
+    shape phase 9 launched them with (``shapes``: {(G, R, form) or (n,
+    R): launches}), f32, with the tolerances of phase 4's rows (two f32
+    ulps of the largest operand; two of the largest |x| plus theta_eta *
+    n of the largest |d|).  Each is timed per call (``Timer``) beside its
+    plain version, its byte bound and, for the stacked form, ``addmm``;
+    the largest (the LM plane) also as a run of 200 launches
+    (``RunTimer``).  Returns the rows."""
+    from repro_torch.kernels import fedprox_update as kfp
+    from repro_torch.kernels import nova_aggregate as kna
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plane import LANE
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rows = []
+    R_max = max(R for _, R, _ in shapes["fedprox_accum"])
+    for (G, R, form), n_path in sorted(shapes["fedprox_accum"].items()):
+        x, g, acc, anchor = (randn((G, R, LANE)) for _ in range(4))
+        coef = torch.rand(G, generator=gen, device=dev) + 0.5
+        active = torch.ones(G, device=dev)
+        args = (x, g, anchor, acc, coef, active, 3e-2, 0.01)
+        kx, kacc = kfp.fedprox_accum(*args)
+        rx, racc = ref.fedprox_accum_ref(*args)
+        torch.cuda.synchronize()
+        atol = 2 * max(_spacing(x), _spacing(g), _spacing(anchor),
+                       _spacing(acc))
+        nbytes = 4 * R * LANE * 6 * G
+        row = {"kernel": "fedprox_accum", "G": G, "R": R, "dtype": "float32",
+               "anchor": form, "path_launches": n_path, "bytes": nbytes,
+               **_both(within(kx, rx, atol), within(kacc, racc, atol))}
+        del kx, kacc, rx, racc
+        row["ms"] = timer(lambda: kfp.fedprox_accum(*args))
+        row["plain_ms"] = timer(lambda: ref.fedprox_accum_ref(*args))
+        row["library_ms"] = None
+        row["bound_ms"] = max(nbytes / bw, 7 * G * R * LANE / f32_rate) * 1e3
+        row["bound_by"] = "bytes"
+        del x, g, acc, anchor, args
+        if R == R_max:
+            row["run_ms"] = run_timer(
+                lambda x, g, a, acc: kfp.fedprox_accum(
+                    x, g, a, acc, coef, active, 3e-2, 0.01),
+                lambda: tuple(randn((G, R, LANE)) for _ in range(4)),
+                nbytes)
+        rows.append(row)
+        log(f"  {_fmt(row)}" + (f"  run of 200 {row['run_ms']:.4f} ms"
+                                if "run_ms" in row else ""))
+        torch.cuda.empty_cache()
+    for (n, R), n_path in sorted(shapes["nova_aggregate_stacked"].items()):
+        x, d = randn((n, R, LANE)), randn((n, R, LANE))
+        w = torch.rand(n, generator=gen, device=dev) + 0.1
+        w = w / w.sum()
+        theta_eta = 2 * 3e-2
+        k = kna.nova_aggregate_stacked(x, d, w, theta_eta)
+        r = ref.nova_aggregate_ref(x, d, w, theta_eta)
+        torch.cuda.synchronize()
+        atol = 2 * _spacing(x) + theta_eta * n * _spacing(d)
+        nbytes = 4 * R * LANE * 3 * n
+        row = {"kernel": "nova_aggregate_stacked", "G": n, "R": R,
+               "dtype": "float32", "anchor": "-", "path_launches": n_path,
+               "bytes": nbytes, **within(k, r, atol)}
+        del k, r
+        M = -theta_eta * torch.outer(torch.ones(n, device=dev), w)
+        row["ms"] = timer(lambda: kna.nova_aggregate_stacked(
+            x, d, w, theta_eta))
+        row["plain_ms"] = timer(lambda: ref.nova_aggregate_ref(
+            x, d, w, theta_eta))
+        row["library_ms"] = timer(lambda: torch.addmm(
+            x.view(n, -1), M, d.view(n, -1)))
+        row["bound_ms"] = max(nbytes / bw, 4 * n * R * LANE / f32_rate) * 1e3
+        row["bound_by"] = "bytes"
+        del x, d
+        if R == R_max:
+            row["run_ms"] = run_timer(
+                lambda x, d: kna.nova_aggregate_stacked(x, d, w, theta_eta),
+                lambda: (randn((n, R, LANE)), randn((n, R, LANE))), nbytes)
+        rows.append(row)
+        log(f"  {_fmt(row)}" + (f"  run of 200 {row['run_ms']:.4f} ms"
+                                if "run_ms" in row else ""))
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"phase 9: {len(bad)} kernel case(s) disagree "
+                             f"with the plain version: {bad}")
+    return rows
+
+
+def drive_lm_phase(dev, bw, f32_rate):
+    """Phase 9: (a) mamba2-130m served at full width and depth in bf16,
+    (b) a 2-layer full-width f32 mamba2 card vs CPU (serving and one LM
+    round), (c) ``lm_smoke`` whole and (d) ``lm_mamba2_130m`` at full
+    width and depth cut to 6 rounds through ``experiments.run``, with a
+    profiled round, (e) both round kernels at every shape (c) and (d)
+    launched against their plain versions, timed.  Returns the launch
+    counts of (a), (c) and (d) and the records."""
+    from repro_torch.configs import get_config
+
+    log("  (a) serve mamba2-130m at full width and depth (bf16, random "
+        "weights): 8 x 512-token prompts, 32 tokens")
+    s_launches, _, s_records, s_profile, s_init = drive_serve_path(
+        dev, cfg=get_config(LM_ARCH), runs=LM_SERVE_RUNS)
+    log("  (b) mamba2-130m x2 layers at full width, f32: card vs CPU")
+    check = lm_reference_check(dev)
+    shapes = _ShapeRecorder()
+    log("  (c) lm_smoke whole (20 rounds) through experiments.run")
+    smoke, _ = _lm_run(dev, "lm_smoke", {}, shapes)
+    launches = Counter(smoke["launches"])
+    log("  (d) lm_mamba2_130m at full width and depth, 6 of 200 rounds")
+    full, result = _lm_run(dev, "lm_mamba2_130m", LM_FULL_OVER, shapes)
+    launches.update(full["launches"])
+    launches.update(s_launches)
+    profile = profile_lm_round(dev, "lm_mamba2_130m", LM_FULL_OVER,
+                               result.params)
+    del result
+    torch.cuda.empty_cache()
+    log("  (e) fedprox_accum and nova_aggregate_stacked at phase 9's shapes"
+        " vs their plain versions")
+    timer = Timer(dev)
+    rows = lm_kernel_checks(dev, timer, RunTimer(), bw, f32_rate,
+                            shapes.shapes)
+    del timer
+    return dict(launches), {
+        "serve_init": s_init, "serve_runs": s_records,
+        "serve_decode_profile": s_profile, "check": check,
+        "lm_smoke": smoke, "lm_mamba2_130m": full, "round_profile": profile,
+        "kernel_rows": rows}
+
+
 # ---------------------------------------------------------------- main --
 
 def main() -> int:
@@ -2806,6 +3195,13 @@ def main() -> int:
                                                         f32_rate)
     del timer
 
+    log("phase 9: mamba2-130m: served at full width and depth (bf16); "
+        "2 layers card vs CPU; lm_smoke whole and lm_mamba2_130m at full "
+        "width and depth (6 rounds) through experiments.run; both round "
+        "kernels at the LM shapes")
+    torch.cuda.empty_cache()
+    l_launches, l_records = drive_lm_phase(dev, bw, f32_rate)
+
     log(f"phase 4: kernels vs plain versions at the paths' shapes and extra "
         f"cases ({smi})")
     timer = Timer(dev)
@@ -2851,7 +3247,7 @@ def main() -> int:
             "replaces": REPLACES[name][1],
             "launches": sum(c.get(name, 0) for c in (
                 launches, t_launches, m_launches, a_launches, s_launches,
-                c_launches, p_launches)),
+                c_launches, p_launches, l_launches)),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2889,7 +3285,18 @@ def main() -> int:
         "phase8": p_records, "phase8_launches": p_launches,
         "phase8_launch_shapes": {k: [list(key) + [n] for key, n in c.items()]
                                  for k, c in p_shapes.items()},
+        "phase9": l_records, "phase9_launches": l_launches,
         "seconds": time.perf_counter() - t_start}, indent=1, default=str))
+    full, check = l_records["lm_mamba2_130m"], l_records["check"]
+    log(f"phase 9 summary: lm_mamba2_130m loss {full['losses'][0]:.4f} -> "
+        f"{full['losses'][-1]:.4f}, {full['round_s_median_after_first']:.3f}"
+        f" s a round, {full['train_tokens_per_s']:.0f} tokens/s, peak "
+        f"{full['peak_device_bytes'] / 2**30:.2f} GiB; card vs CPU logits "
+        f"{check['serve_logits_max_abs_err']:.2e}, round "
+        f"{check['round_max_abs_err']:.2e}; "
+        + "; ".join(f"{r['kernel']} {r['ms']:.4f} ms (bound "
+                    f"{r['bound_ms']:.4f})" for r in l_records["kernel_rows"]
+                    if r["R"] == full["R"]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

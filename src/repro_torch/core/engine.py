@@ -386,6 +386,15 @@ class MeshExecutor:
     use_plane: bool = True
     _cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
+    def build_step(self, micro_loss_fn, hyper: CEFLHyper):
+        """The round step for ``micro_loss_fn(params, microbatch, mask)``
+        in the batched convention of ``core.round_step`` (params with a
+        leading DPU axis -> ``(n,)`` losses), for a caller that drives
+        the rounds itself (``experiments.lm.run_lm``).  Nothing is
+        compiled and nothing donated: the caller drops its reference to
+        the old params when the step returns."""
+        return build_cefl_round_step(micro_loss_fn, hyper)
+
     def _get_step(self, loss_fn, n_dpu, bucket, gamma_max, mu, eta):
         key = (loss_fn, n_dpu, bucket, gamma_max, mu, eta)
         if key not in self._cache:

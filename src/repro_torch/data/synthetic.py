@@ -1,10 +1,11 @@
-"""Deterministic synthetic datasets.  Counterpart of ``repro.data.synthetic``
-(the image task): numpy, drawing the same numbers from the same seeds.
+"""Deterministic synthetic datasets.  Counterpart of ``repro.data.synthetic``:
+numpy, drawing the same numbers from the same seeds.
 
 * ``make_image_dataset`` — F-MNIST / CIFAR-10-shaped 10-class image task
   (class-conditional Gaussian blobs over structured templates).
 * ``make_online_ues`` — per-UE OnlineDataset streams (App. G: N(2000,200)
   arrivals, 5-of-10 label support non-iid).
+* ``make_token_batches`` — zipf-distributed token batches for LM training.
 """
 from __future__ import annotations
 
@@ -54,3 +55,21 @@ def make_online_ues(train_x, train_y, num_ue: int = 20,
             mean_arrivals=mean_arrivals, std_arrivals=std_arrivals,
             seed=seed * 1000 + n, drift_labels=drift_labels))
     return ues
+
+
+def make_token_batches(vocab: int, n_dpu: int, n_micro: int, mb: int,
+                       seq: int, seed: int = 0, enc_seq: int = 0,
+                       d_model: int = 0):
+    """CE-FL-layout LM batch: tokens / labels (n_dpu, n_micro, mb, S),
+    int32, labels the tokens shifted left by one (wrapping); with
+    ``enc_seq``, ``enc_embed`` (n_dpu, n_micro, mb, enc_seq, d_model)."""
+    rng = np.random.RandomState(seed)
+    # zipf-ish marginal with local repetition structure
+    base = rng.zipf(1.3, (n_dpu, n_micro, mb, seq)).astype(np.int64)
+    tokens = (base % vocab).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=-1)
+    out = {"tokens": tokens, "labels": labels}
+    if enc_seq:
+        out["enc_embed"] = rng.randn(
+            n_dpu, n_micro, mb, enc_seq, d_model).astype(np.float32) * 0.1
+    return out

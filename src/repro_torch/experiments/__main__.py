@@ -14,6 +14,7 @@
     python -m repro_torch.experiments run sweep_smoke --device cpu \
         --checkpoint out/ck --resume
     python -m repro_torch.experiments validate paper_table1 --device cpu
+    python -m repro_torch.experiments run lm_smoke --device cpu
 
 ``NAME`` is a preset (``list`` shows them) or a path to a spec JSON
 (written by ``show`` / ``--dump``).  ``--set`` takes dotted spec paths.
@@ -23,8 +24,9 @@ checkpoint flag runs through the engine with per-round lines.
 ``--checkpoint DIR`` keeps full-state snapshots (every
 ``--checkpoint-every`` rounds, and at ``--stop-after N``); ``--resume``
 continues from the snapshot and appends to the ``--trace`` file.
-``--device`` is ``cuda`` unless given, and a CUDA run without a card
-raises.
+An LM spec (``lm_smoke``, ``lm_mamba2_130m``) runs its one seed through
+``experiments.lm.run_lm``.  ``--device`` is ``cuda`` unless given, and a
+CUDA run without a card raises.
 """
 from __future__ import annotations
 
@@ -33,10 +35,12 @@ import json
 import os
 import sys
 
+from repro_torch.device import require_device
 from repro_torch.experiments import (TraceSink, available_experiments,
                                      build_context, from_json,
                                      get_experiment, run as run_one, sweep,
                                      to_json)
+from repro_torch.experiments.lm import lm_config
 
 
 def _load_spec(name: str):
@@ -67,11 +71,7 @@ def _apply_overrides(spec, args):
 
 def _cmd_list(args):
     for name in available_experiments():
-        try:
-            spec = get_experiment(name)
-        except NotImplementedError as e:
-            print(f"{name:22s} not ported: {e}")
-            continue
+        spec = get_experiment(name)
         print(f"{name:22s} kind={spec.model.kind:10s} "
               f"strategy={spec.strategy:12s} scenario={spec.scenario:16s} "
               f"rounds={spec.engine.rounds:<4d} seeds={list(spec.seeds)}")
@@ -93,10 +93,20 @@ def _cmd_run(args):
             and not args.checkpoint:
         raise SystemExit("--checkpoint-every/--stop-after/--resume need "
                          "--checkpoint <dir>")
+    if spec.model.kind == "lm" and (args.checkpoint or args.resume
+                                    or args.stop_after):
+        raise SystemExit(
+            "--checkpoint/--resume/--stop-after apply to classifier "
+            "sweeps; for lm specs use repro_torch.experiments.lm.run_lm("
+            "spec, checkpoint=...) directly")
     # append on resume: the pre-kill rounds are already in the file
     trace = TraceSink(args.trace, append=args.resume) if args.trace \
         else None
     try:
+        if spec.model.kind == "lm":
+            res = run_one(spec, device=args.device, trace=trace)
+            print(f"final loss {res.final.loss:.4f}")
+            return 0
         if len(spec.run_seeds) == 1 and not (args.checkpoint
                                              or args.executor == "vmap"):
             _print_header()
@@ -139,7 +149,11 @@ def _cmd_validate(args):
     back = from_json(to_json(spec))
     if back != spec:
         raise SystemExit("spec JSON round-trip failed")
-    build_context(spec, device=args.device)
+    if spec.model.kind == "lm":
+        require_device(args.device)
+        lm_config(spec.model)
+    else:
+        build_context(spec, device=args.device)
     print(f"spec {spec.name!r} OK (json round-trip + context build)")
     return 0
 

@@ -1,5 +1,5 @@
 """Named experiment presets — the registry's built-ins.  Counterpart of
-``repro.experiments.presets``: every CE-FL preset, with the same values.
+``repro.experiments.presets``: every preset, with the same values.
 
 Each name maps to a fully specified :class:`~repro_torch.experiments.spec.
 ExperimentSpec`; the paper touchstones reference the table/figure they
@@ -9,8 +9,8 @@ reproduce.  Override any axis from the CLI::
     python -m repro_torch.experiments run campus_walk_vs_fixed \
         --set strategy=fixed:0 --seeds 0,1,2
 
-The LM presets (``lm_smoke``, ``lm_mamba2_130m``) are registered but raise
-on lookup: LM training is ROADMAP queue 1 item 6.
+The LM presets (``lm_smoke``, ``lm_mamba2_130m``) run through
+``repro_torch.experiments.lm.run_lm``.
 """
 from __future__ import annotations
 
@@ -118,6 +118,29 @@ def sweep_bench() -> ExperimentSpec:
         seeds=(0, 1, 2, 3, 4, 5, 6, 7))
 
 
+@register_experiment("lm_smoke")
+def lm_smoke() -> ExperimentSpec:
+    """Mesh-native CE-FL LM training, smoke-sized (the old
+    ``launch/train.py`` defaults with --reduced)."""
+    return ExperimentSpec(
+        name="lm_smoke",
+        model=ModelSpec(kind="lm", arch="mamba2-130m", reduced=True,
+                        batch=8, seq=256, n_dpu=2, n_micro=1, gamma=1),
+        engine=EngineSpec(rounds=20, eta=3e-2, mu=0.01),
+        strategy="fixed:0", scenario="static", seeds=(0,))
+
+
+@register_experiment("lm_mamba2_130m")
+def lm_mamba2_130m() -> ExperimentSpec:
+    """The full 130M-parameter mamba2 CE-FL run."""
+    return ExperimentSpec(
+        name="lm_mamba2_130m",
+        model=ModelSpec(kind="lm", arch="mamba2-130m", reduced=False,
+                        batch=8, seq=512, n_dpu=2, n_micro=1, gamma=2),
+        engine=EngineSpec(rounds=200, eta=3e-2, mu=0.01),
+        strategy="fixed:0", scenario="static", seeds=(0,))
+
+
 @register_experiment("bench_quick")
 def bench_quick() -> ExperimentSpec:
     """The QUICK=1 benchmark harness cell (``benchmarks/common.setup``):
@@ -150,16 +173,3 @@ def bench_paper() -> ExperimentSpec:
         engine=EngineSpec(rounds=40, eta=0.1, solver_outer=4,
                           reoptimize_every=3),
         strategy="cefl", scenario="static", seeds=(0,))
-
-
-def _lm_not_ported(name):
-    def factory():
-        raise NotImplementedError(
-            f"experiment {name!r} trains an LM through the mesh-native LM "
-            "path, which the port does not have yet (ROADMAP queue 1 item "
-            "6, LM training)")
-    return factory
-
-
-for _name in ("lm_smoke", "lm_mamba2_130m"):
-    register_experiment(_name)(_lm_not_ported(_name))

@@ -4,6 +4,7 @@ Counterpart of ``repro.experiments.run``.
     from repro_torch import experiments
 
     result = experiments.run("quickstart", device="cpu")     # one run
+    result = experiments.run("lm_smoke", device="cpu")       # LM training
     sweep = experiments.sweep("sweep_smoke", device="cpu")   # all seeds
     sweep = experiments.sweep([spec_a, spec_b], device="cpu")  # a grid
     sweep.stats()
@@ -23,6 +24,7 @@ from typing import Optional, Sequence, Union
 
 from repro_torch.core.api import RunResult
 from repro_torch.experiments.build import build_context
+from repro_torch.experiments.lm import run_lm
 from repro_torch.experiments.spec import ExperimentSpec, get_experiment
 from repro_torch.experiments.sweep import SweepResult, get_sweep_executor
 from repro_torch.experiments.trace import TraceSink, round_record
@@ -34,8 +36,24 @@ def run(spec: SpecLike, *, seed: Optional[int] = None, device="cuda",
         trace: Optional[TraceSink] = None, callbacks=()) -> RunResult:
     """Run ONE seed of a spec (default: the first of ``spec.seeds``)
     through the orchestration engine on ``device`` (``"cuda"`` by
-    default; a CPU run must be asked for)."""
+    default; a CPU run must be asked for); LM specs dispatch to the
+    mesh-native LM trainer."""
     spec = get_experiment(spec)
+    if spec.model.kind == "lm":
+        if callbacks:
+            raise ValueError("per-round callbacks are not supported for "
+                             "lm specs (the mesh loop owns the rounds)")
+        if seed is None and len(spec.run_seeds) != 1:
+            raise ValueError(
+                f"lm specs run one seed at a time; spec has seeds "
+                f"{spec.run_seeds}: pass seed=... or set a single seed")
+        seed = spec.run_seeds[0] if seed is None else int(seed)
+        result = run_lm(spec, seed=seed, device=device)
+        if trace is not None:
+            for rep in result.reports:
+                trace.write(round_record(spec.name, seed, rep,
+                                         executor="lm"))
+        return result
     seed = spec.run_seeds[0] if seed is None else int(seed)
     ctx = build_context(spec, device=device)
     engine = ctx.make_engine(seed, callbacks=callbacks)
@@ -69,6 +87,10 @@ def sweep(specs: Union[SpecLike, Sequence[SpecLike]], *,
         raise ValueError(f"sweep specs must have unique names: {names}")
     result: Optional[SweepResult] = None
     for spec in specs:
+        if spec.model.kind != "classifier":
+            raise ValueError(
+                f"sweep supports classifier specs; run {spec.name!r} "
+                f"(kind={spec.model.kind!r}) through run()")
         ckpt = None
         if checkpoint_dir is not None:
             ckpt = checkpoint_dir if len(specs) == 1 else \

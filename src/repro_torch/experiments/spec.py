@@ -19,11 +19,11 @@ string-registry pattern as strategies and scenarios::
     spec = spec.override(**{"engine.rounds": 4, "seeds": (0, 1)})
     assert from_json(to_json(spec)) == spec
 
-The port's specs carry the fields the port runs: the classifier model
-(``kind="lm"`` is ROADMAP queue 1 item 6), and the engine fields of the
-port's ``EngineOptions`` (per-round cohorts, ``cohort_size``, are queue 1
-item 3; the sharded plane, ``mesh_shape``, item 5; ``kernel_backend`` and
-``sanitize`` have no port: kernels dispatch by device).
+The port's specs carry the fields the port runs: the classifier and LM
+models, and the engine fields of the port's ``EngineOptions`` (the
+sharded plane, ``mesh_shape``, is ROADMAP queue 1 item 5;
+``kernel_backend`` and ``sanitize`` have no port: kernels dispatch by
+device).
 """
 from __future__ import annotations
 
@@ -36,12 +36,22 @@ from repro_torch.core.api import EngineOptions
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    """What trains: ``kind="classifier"``, the paper's FL workload
-    (``repro_torch.models.classifier``)."""
+    """What trains.  ``kind="classifier"`` is the paper's FL workload
+    (``repro_torch.models.classifier``); ``kind="lm"`` is the mesh-native
+    LM path (``repro_torch.experiments.lm``)."""
     kind: str = "classifier"
+    # classifier fields
     input_shape: Tuple[int, ...] = (14, 14, 1)
     hidden: Tuple[int, ...] = (64,)
     num_classes: int = 10
+    # lm fields (batch layout of the mesh round)
+    arch: str = "mamba2-130m"
+    reduced: bool = True
+    batch: int = 8
+    seq: int = 256
+    n_dpu: int = 2
+    n_micro: int = 1
+    gamma: int = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,9 +267,7 @@ def available_experiments() -> List[str]:
 
 
 def get_experiment(spec) -> ExperimentSpec:
-    """Resolve a preset name / an ExperimentSpec instance / a dict.  A
-    preset the port does not run yet raises NotImplementedError naming
-    its ROADMAP item."""
+    """Resolve a preset name / an ExperimentSpec instance / a dict."""
     if isinstance(spec, ExperimentSpec):
         return spec
     if isinstance(spec, dict):

@@ -66,6 +66,16 @@ def tree_map(fn: Callable, tree):
     return tree_from_paths([p for p, _ in pairs], [fn(x) for _, x in pairs])
 
 
+def tree_unbind(tree) -> list:
+    """A dict tree whose leaves share a leading axis of length n as the n
+    trees of its slices (views, one ``unbind`` per leaf)."""
+    pairs = tree_paths(tree)
+    paths = [p for p, _ in pairs]
+    cols = [x.unbind(0) for _, x in pairs]
+    return [tree_from_paths(paths, [c[i] for c in cols])
+            for i in range(len(cols[0]))]
+
+
 # -- the spec -------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)

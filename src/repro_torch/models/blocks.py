@@ -1,13 +1,13 @@
 """Decoder layers and period specs of the model track (counterpart of
-``repro.models.blocks``), for attention layers (``"A"``) with a dense MLP.
+``repro.models.blocks``): attention layers (``"A"``) with a dense MLP and
+Mamba-2 layers (``"M"``).
 
 Layers are grouped in "periods": the smallest repeating pattern of layer
 kinds and MoE placement.  Params of one period are a dict ``{"layer_0":
 {...}, ...}``; the full stack adds a leading period axis to every leaf,
-as in the JAX package, and the forward passes index it (a view).  Mamba
-layers (``repro.models.mamba``), MoE layers (``repro.models.moe``) and
-the encoder-decoder's cross-attention are not ported yet: they raise
-``NotImplementedError``.
+as in the JAX package, and the forward passes take views of it.  MoE
+layers (``repro.models.moe``) and the encoder-decoder's cross-attention
+are not ported yet: they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.plane import tree_map, tree_paths
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models.common import (apply_rope, dense_init, rms_norm,
                                        rope_frequencies)
 
@@ -62,10 +63,6 @@ def check_ported(cfg: ModelConfig, spec: LayerSpec = None) -> None:
             f"{cfg.name}: the encoder-decoder (encoder, cross-attention, "
             "repro.models.lm.encoder_forward) is not ported yet")
     for s in [spec] if spec is not None else period_spec(cfg):
-        if s.kind != "A":
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba layers ('{s.kind}', repro.models.mamba)"
-                " are not ported yet")
         if s.use_moe:
             raise NotImplementedError(
                 f"{cfg.name}: MoE layers (repro.models.moe) are not ported "
@@ -104,8 +101,11 @@ def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
                       spec: LayerSpec, dtype):
     check_ported(cfg, spec)
     d = cfg.d_model
-    p = {"ln1": torch.zeros((d,), dtype=dtype, device=gen.device),
-         "attn": init_attn_params(gen, cfg, dtype)}
+    p = {"ln1": torch.zeros((d,), dtype=dtype, device=gen.device)}
+    if spec.kind == "A":
+        p["attn"] = init_attn_params(gen, cfg, dtype)
+    else:
+        p["mamba"] = mamba_lib.init_mamba_params(gen, d, cfg.ssm, dtype)
     if spec.has_mlp:
         p["ln2"] = torch.zeros((d,), dtype=dtype, device=gen.device)
         p["mlp"] = init_mlp_params(gen, cfg, dtype)
@@ -209,25 +209,46 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos: int, *, window=None):
 
 
 def layer_forward(params, x, cfg: ModelConfig, spec: LayerSpec, *, angles,
-                  q_block=512, kv_block=512):
-    """Full-sequence layer (prefill).  Returns (x, (k, v))."""
+                  ssm_state=None, return_ssm_state=False, q_block=512,
+                  kv_block=512):
+    """Full-sequence layer (training, prefill).  Returns (x, kv, state):
+    (k, v) of an attention layer, else None; the Mamba layer's final
+    {"h", "conv"} state with ``return_ssm_state``, else None.
+    ``ssm_state`` starts a Mamba layer from a carried state."""
     check_ported(cfg, spec)
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    y, kv = attn_forward(params["attn"], h, cfg, angles=angles,
-                         q_block=q_block, kv_block=kv_block)
+    kv = new_state = None
+    if spec.kind == "A":
+        y, kv = attn_forward(params["attn"], h, cfg, angles=angles,
+                             q_block=q_block, kv_block=kv_block)
+    elif return_ssm_state:
+        y, new_state = mamba_lib.ssd_forward(
+            params["mamba"], h, cfg.ssm, init_state=ssm_state,
+            return_state=True)
+    else:
+        y = mamba_lib.ssd_forward(params["mamba"], h, cfg.ssm,
+                                  init_state=ssm_state)
     x = x + y
     if spec.has_mlp:
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         x = x + mlp_forward(params["mlp"], h, cfg)
-    return x, kv
+    return x, kv, new_state
 
 
 def layer_decode(params, x, cfg: ModelConfig, spec: LayerSpec, cache,
                  pos: int, *, window=None):
-    """Single-token layer step; writes the layer's ``cache`` in place."""
+    """Single-token layer step; writes the layer's ``cache`` in place
+    ({"k", "v"} of an attention layer, {"h", "conv"} of a Mamba one)."""
     check_ported(cfg, spec)
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    x = x + attn_decode(params["attn"], h, cfg, cache, pos, window=window)
+    if spec.kind == "A":
+        y = attn_decode(params["attn"], h, cfg, cache, pos, window=window)
+    else:
+        y, new = mamba_lib.mamba_decode_step(params["mamba"], h, cache,
+                                             cfg.ssm)
+        for k, t in new.items():
+            cache[k].copy_(t)
+    x = x + y
     if spec.has_mlp:
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         x = x + mlp_forward(params["mlp"], h, cfg)

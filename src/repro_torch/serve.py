@@ -2,11 +2,13 @@
 batch, then step the batched decode loop with greedy sampling (counterpart
 of ``examples/serve_lm.py`` and ``repro.launch.steps.build_prefill_step``
 / ``build_serve_step``).  Every decode step's attention runs the
-``swa_decode_attention`` kernel on the card.
+``swa_decode_attention`` kernel on the card; a Mamba-2 layer steps its
+recurrent state in plain torch (no kernel).
 
     python -m repro_torch.serve --arch starcoder2-15b --batch 8 \\
         --prompt-len 512 --gen 32 --cache-len 4096        # on the card
     python -m repro_torch.serve --arch starcoder2-15b --reduced --device cpu
+    python -m repro_torch.serve --arch mamba2-130m --reduced --device cpu
 
 ``--reduced`` takes the config's smoke size (``configs.reduced``);
 ``--layers N`` cuts depth only.  Weights are random, drawn from
@@ -38,7 +40,8 @@ def serve(cfg: ModelConfig, prompts, *, gen: int, cache_len: int,
     """Greedy generation of ``gen`` tokens for each row of ``prompts``
     ((B, P) token ids, array or tensor).  ``params``: the model's
     parameters on ``device`` (random from ``seed`` when None).  A config
-    without a sliding window needs P + gen - 1 <= cache_len.
+    with attention and without a sliding window needs P + gen - 1 <=
+    cache_len; one with Mamba layers needs P a multiple of the chunk.
 
     Returns (tokens (B, gen) on ``device``, stats) with stats holding
     ``prefill_s``, ``decode_step_s`` (host seconds per decode step, each
@@ -48,9 +51,13 @@ def serve(cfg: ModelConfig, prompts, *, gen: int, cache_len: int,
     dev = require_device(device)
     prompts = torch.as_tensor(np.asarray(prompts), device=dev).long()
     P = prompts.shape[1]
-    if cfg.sliding_window is None and P + gen - 1 > cache_len:
+    if not cfg.attn_free and cfg.sliding_window is None \
+            and P + gen - 1 > cache_len:
         raise ValueError(f"prompt {P} + {gen} tokens do not fit a "
                          f"{cache_len}-position cache")
+    if "M" in cfg.layer_pattern and P % cfg.ssm.chunk_size:
+        raise ValueError(f"{cfg.name} prompts must be a multiple of the "
+                         f"SSD chunk, {cfg.ssm.chunk_size} tokens, not {P}")
     if params is None:
         params = L.init_lm_params(
             torch.Generator(device=dev).manual_seed(seed), cfg)

@@ -55,27 +55,19 @@ torch.set_num_threads(2)
 # sharded plane: ROADMAP queue 1 item 5; kernel dispatch and the
 # sanitizer: by device, no knob)
 JAX_ONLY_ENGINE = ("kernel_backend", "sanitize", "mesh_shape")
-JAX_ONLY_MODEL = ("arch", "reduced", "batch", "seq", "n_dpu", "n_micro",
-                  "gamma")
-LM_PRESETS = ("lm_smoke", "lm_mamba2_130m")
 
 
 def _jax_dict(spec):
     d = spec.to_dict()
     for k in JAX_ONLY_ENGINE:
         d["engine"].pop(k)
-    for k in JAX_ONLY_MODEL:
-        d["model"].pop(k)
     return d
 
 
 def test_presets_equal_the_reference_and_round_trip_json():
+    """Every preset, the LM ones too, equals the reference's."""
     assert texp.available_experiments() == jexp.available_experiments()
     for name in texp.available_experiments():
-        if name in LM_PRESETS:
-            with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-                texp.get_experiment(name)
-            continue
         spec = texp.get_experiment(name)
         assert spec.to_dict() == _jax_dict(jexp.get_experiment(name)), name
         assert texp.from_json(texp.to_json(spec)) == spec
@@ -111,7 +103,8 @@ def test_cli_list_show_validate_and_the_device_rule():
     lines = {ln.split()[0]: ln for ln in out.splitlines()}
     assert sorted(lines) == jexp.available_experiments()
     assert "strategy=cefl" in lines["quickstart"]
-    assert "not ported" in lines["lm_smoke"]
+    assert "kind=lm" in lines["lm_smoke"]
+    assert "not ported" not in out
     rc, out = _cli("show", "quickstart", "--rounds", "3")
     assert rc == 0
     spec = texp.from_json(out)

@@ -28,19 +28,15 @@ jspec = importlib.import_module("repro.experiments.spec")
 torch.set_num_threads(2)
 
 # the reference's spec fields the port has no counterpart for (kernel
-# dispatch and the sanitizer: by device, no knob; the sharded plane and
-# the LM track: ROADMAP queue 1 items 5-6)
+# dispatch and the sanitizer: by device, no knob; the sharded plane:
+# ROADMAP queue 1 item 5)
 JAX_ONLY_ENGINE = ("kernel_backend", "sanitize", "mesh_shape")
-JAX_ONLY_MODEL = ("arch", "reduced", "batch", "seq", "n_dpu", "n_micro",
-                  "gamma")
 
 
 def _jax_dict(spec):
     d = json.loads(jspec.to_json(spec))
     for k in JAX_ONLY_ENGINE:
         d["engine"].pop(k)
-    for k in JAX_ONLY_MODEL:
-        d["model"].pop(k)
     return d
 
 

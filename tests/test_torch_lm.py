@@ -62,6 +62,7 @@ def _cfgs(arch_ov, **extra):
 
 SC2 = ("starcoder2-15b", {"num_heads": 6, "num_kv_heads": 2})   # GQA, W 64
 QWEN = ("qwen3-32b", {"num_heads": 4, "num_kv_heads": 2})       # qk_norm
+MAMBA = ("mamba2-130m", {})                     # SSD, chunk 8, no attention
 
 
 def _params(jcfg, dtype=jnp.float32, seed=0):
@@ -87,7 +88,7 @@ def test_get_config_matches_repro(arch):
 
 
 @pytest.mark.parametrize("arch,missing", [
-    ("mamba2-130m", "Mamba"), ("jamba-v0.1-52b", "Mamba"),
+    ("jamba-v0.1-52b", "MoE"),
     ("arctic-480b", "MoE"), ("llama4-maverick-400b-a17b", "MoE"),
     ("whisper-medium", "encoder-decoder")])
 def test_unported_layer_kinds_raise(arch, missing):
@@ -265,9 +266,12 @@ def _slice(arch_ov, dtype, S0=16, steps=8):
 
 @pytest.mark.parametrize("arch_ov,dtype", [(SC2, jnp.float32),
                                            (QWEN, jnp.float32),
-                                           (SC2, jnp.bfloat16)],
+                                           (SC2, jnp.bfloat16),
+                                           (MAMBA, jnp.float32),
+                                           (MAMBA, jnp.bfloat16)],
                          ids=["starcoder2-gqa-f32", "qwen3-qknorm-f32",
-                              "starcoder2-gqa-bf16"])
+                              "starcoder2-gqa-bf16", "mamba2-f32",
+                              "mamba2-bf16"])
 def test_prefill_and_decode_match_repro(arch_ov, dtype):
     out, _, _, _ = _slice(arch_ov, dtype)
     bf16 = dtype == jnp.bfloat16
@@ -276,7 +280,8 @@ def test_prefill_and_decode_match_repro(arch_ov, dtype):
     assert tl.dtype == torch.float32 and tl.shape == jl.shape
     np.testing.assert_allclose(tl.numpy(), _np(jl), atol=tol)
     for tc, jc in out["caches"]:          # after prefill, after decode
-        for name, kv in ((n, kv) for n in tc for kv in ("k", "v")):
+        for name, kv in ((n, kv) for n in tc for kv in tc[n]):
+            assert sorted(tc[name]) == sorted(jc[name])
             g, w = tc[name][kv].float().numpy(), _np(jc[name][kv])
             assert g.shape == w.shape
             np.testing.assert_allclose(g, w, atol=tol)
@@ -291,8 +296,8 @@ def _teacher_forced(tp, tcfg, toks):
     return TL.unembed(tp, tcfg, x)
 
 
-@pytest.mark.parametrize("arch_ov", [SC2, QWEN], ids=["starcoder2",
-                                                      "qwen3"])
+@pytest.mark.parametrize("arch_ov", [SC2, QWEN, MAMBA],
+                         ids=["starcoder2", "qwen3", "mamba2"])
 def test_decode_matches_teacher_forced_forward(arch_ov):
     """The port's prefill + decode steps reproduce its own teacher-forced
     logits, as tests/test_system.py holds the JAX package to."""
@@ -375,3 +380,26 @@ def test_serve_cli_on_the_cpu_and_its_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             serve(tcfg, np.zeros((1, 4), np.int64), gen=2, cache_len=16)
+
+
+def test_serve_mamba_follows_its_decode_loop_and_refuses_ragged_prompts():
+    """A Mamba config serves with no attention cache (``cache_len`` is not
+    a bound) and a prompt a multiple of the SSD chunk, as the reference's
+    ``ssd_forward`` asserts."""
+    _, tcfg = _cfgs(MAMBA)
+    params = TL.init_lm_params(torch.Generator().manual_seed(4), tcfg,
+                               torch.float32)
+    prompts = np.random.RandomState(9).randint(0, tcfg.vocab_size, (2, 16))
+    tokens, stats = serve(tcfg, prompts, gen=4, cache_len=8, params=params,
+                          device="cpu")
+    assert tokens.shape == (2, 4) and stats["logits_finite"]
+    lg, cache = TL.prefill(params, tcfg, torch.from_numpy(prompts), 8)
+    assert sorted(cache["blocks"]["layer_0"]) == ["conv", "h"]
+    want = [torch.argmax(lg, -1)]
+    for _ in range(3):
+        lg, cache = TL.lm_decode_step(params, tcfg, want[-1], cache)
+        want.append(torch.argmax(lg, -1))
+    torch.testing.assert_close(tokens, torch.stack(want, 1))
+    with pytest.raises(ValueError, match="multiple of the SSD chunk"):
+        serve(tcfg, np.zeros((1, 12), np.int64), gen=2, cache_len=16,
+              params=params, device="cpu")
