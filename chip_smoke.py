@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port of CE-FL (``src/repro_torch``) on one NVIDIA
 card and check it: the CE-FL rounds, the front door with the ``cefl``
 strategy, multi-seed sweeps with resume, cohorts, the scenario fuzzer,
-the LM serving path and CE-FL training of mamba2-130m.
+the LM serving path, CE-FL training of mamba2-130m and whisper-medium,
+and serving of the MoE and hybrid models.
 
     python3 chip_smoke.py            # from the repo root, on a machine with
                                      # one CUDA card, nvcc and nvidia-smi
@@ -110,6 +111,30 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              at every shape (c) and (d) launched against their plain
              versions, timed per call and, at the LM plane, as a run of
              200 launches.
+10. moe     — (runs after 9) (a) jamba-v0.1-52b (arXiv:2403.19887) at
+             full width in bf16, 16 of its 32 layers (2 of 4 periods:
+             14 Mamba-2, 2 attention, 8 MoE top-2 of 16; 52.0 GB), and
+             (b) llama4-maverick-400b-a17b at full width, one period (a
+             dense layer and a 128-expert top-1 layer with its shared
+             expert; 37.1 GB), each served through ``repro_torch.serve``
+             (8 x 512-token prompts, 32 and 4 tokens, cache 1024; the
+             MoE routings recorded, prefill's capacity drops reported),
+             counters set to 0 just before and read just after each run:
+             ``swa_decode_attention`` once per attention layer and step;
+             (c) whisper-medium (arXiv:2212.04356) at full width and depth
+             trained through ``launch.train`` (2 DPUs, batch 8 x seq 256
+             + 1,500 encoder frames, gamma 2, eta 3e-3, 3 rounds; per
+             round ``fedprox_accum`` gamma times and
+             ``nova_aggregate_stacked`` once; losses finite and falling),
+             a profiled round, then served (8 x 64, 32 tokens: self- and
+             cross-attention through the kernel); (d) the flash backward
+             at starcoder2-15b's attention shape (S 6144 past the 4096
+             window, Hq 48, Hkv 4, D 128, f32) against autograd through
+             a naive masked attention; (e) jamba, llama4, arctic, qwen3
+             and whisper at their reduced size in f32, card vs CPU:
+             prefill and decode logits and one LM round, after checking
+             that every MoE routing agrees.  Phase 4 holds each kernel
+             against its plain version at every shape phase 10 launched.
 4. kernels — each hand-written kernel against its plain PyTorch version on
              the same card tensors, at every shape the paths launched it
              with and at extra cases, with the tolerance stated below
@@ -1841,7 +1866,8 @@ def drive_serve_path(dev, cfg=None, runs=SERVE_RUNS, gen=SERVE_GEN,
     bf16, random weights from a seed on the card): each of ``runs`` greedy-
     generates ``gen`` tokens, with the launch counters set to 0 just
     before and read just after.  Each run must launch
-    ``swa_decode_attention`` (attention layers) x (gen - 1) times and no
+    ``swa_decode_attention`` (attention layers, plus every layer's
+    cross-attention in an encoder-decoder) x (gen - 1) times and no
     other kernel (a Mamba-2 config: no launch at all); logits finite,
     tokens in the vocab.  Returns the summed
     launches, the kernel's launch shapes ((B, S, cache_len) -> launches),
@@ -1856,6 +1882,8 @@ def drive_serve_path(dev, cfg=None, runs=SERVE_RUNS, gen=SERVE_GEN,
     cfg = cfg or get_config(SERVE_ARCH)
     n_attn = blocks.num_periods(cfg) * sum(
         spec.kind == "A" for spec in blocks.period_spec(cfg))
+    # an encoder-decoder's decode step also cross-attends in every layer
+    n_cross = cfg.num_layers if cfg.is_encdec else 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = L.init_lm_params(torch.Generator(device=dev).manual_seed(0),
@@ -1883,7 +1911,7 @@ def drive_serve_path(dev, cfg=None, runs=SERVE_RUNS, gen=SERVE_GEN,
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)          # read just after
         want = dict.fromkeys(launches, 0)
-        want["swa_decode_attention"] = n_attn * (gen - 1)
+        want["swa_decode_attention"] = (n_attn + n_cross) * (gen - 1)
         if launches != want:
             raise AssertionError(f"serve {label}: launches {launches} != "
                                  f"{want}")
@@ -1891,6 +1919,8 @@ def drive_serve_path(dev, cfg=None, runs=SERVE_RUNS, gen=SERVE_GEN,
         for pos in range(P, P + gen - 1):
             if n_attn:
                 shapes[(B, S, min(pos + 1, S))] += n_attn
+            if n_cross:
+                shapes[(B, cfg.encoder_seq, cfg.encoder_seq)] += n_cross
         if not stats["logits_finite"]:
             raise AssertionError(f"serve {label}: logits not finite")
         lo, hi = int(tokens.min()), int(tokens.max())
@@ -1937,10 +1967,14 @@ def profile_decode_step(params, cfg, dev, B, P, cache_len):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import lm as L
+    from repro_torch.serve import encoder_frames
 
     prompts = torch.from_numpy(np.random.RandomState(2).randint(
         0, cfg.vocab_size, (B, P))).to(dev)
-    logits, cache = L.prefill(params, cfg, prompts, cache_len)
+    enc = encoder_frames(cfg, B, 2, params["embed"].dtype, dev) \
+        if cfg.is_encdec else None
+    logits, cache = L.prefill(params, cfg, prompts, cache_len,
+                              enc_embed=enc)
     tok = torch.argmax(logits, dim=-1)
     logits, cache = L.lm_decode_step(params, cfg, tok, cache)
     tok = torch.argmax(logits, dim=-1)
@@ -2009,7 +2043,7 @@ SWA_EXTRA = [
 
 
 def swa_checks(dev, timer, bw, f32_rate, bf16_rate, path, Hq=48, Hkv=4,
-               D=128):
+               D=128, cases=None):
     """``swa_decode_attention`` against its plain version at the first and
     last (B, S, cache_len) of each serve run (``path``: {(B, S,
     cache_len): launches}; bf16, starcoder2's heads) and at
@@ -2030,25 +2064,28 @@ def swa_checks(dev, timer, bw, f32_rate, bf16_rate, path, Hq=48, Hkv=4,
     path's shape and at B = 8 full, one call must capture as a CUDA graph
     of one kernel (the splits merge in the same launch), and the profiler
     reports its device time per launch.  Returns the rows and the
-    row of the main path's shape (the 8 x 512 run's first step)."""
+    row of the main path's shape (the 8 x 512 run's first step).
+    ``cases``: (B, Hq, Hkv, D, S, cache_len, dtype, launches) rows to
+    check instead (phase 10's path shapes); then there is no main row."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import swa_decode_attention as kswa
 
     gen = torch.Generator(device=dev).manual_seed(9876)
-    keys = sorted(path)
-    firsts = {}
-    for B, S, cl in keys:
-        firsts.setdefault((B, S), []).append(cl)
-    cases = []
-    for (B, S), cls in sorted(firsts.items()):
-        for cl in sorted({min(cls), max(cls)}):
-            cases.append((B, Hq, Hkv, D, S, cl, torch.bfloat16,
-                          path[(B, S, cl)]))
-    cases += [c + (0,) for c in SWA_EXTRA]
-    # the main path's shape: the first step of the largest batch
-    main_key = min(path, key=lambda key: (-key[0], key[2]))
+    main_key = None
+    if cases is None:
+        firsts = {}
+        for B, S, cl in sorted(path):
+            firsts.setdefault((B, S), []).append(cl)
+        cases = []
+        for (B, S), cls in sorted(firsts.items()):
+            for cl in sorted({min(cls), max(cls)}):
+                cases.append((B, Hq, Hkv, D, S, cl, torch.bfloat16,
+                              path[(B, S, cl)]))
+        cases += [c + (0,) for c in SWA_EXTRA]
+        # the main path's shape: the first step of the largest batch
+        main_key = min(path, key=lambda key: (-key[0], key[2]))
     rows, main = [], None
     for B, Hq_, Hkv_, D_, S, cl, dt, on_path in cases:
         q = torch.randn((B, Hq_, D_), generator=gen, device=dev).to(dt)
@@ -2207,7 +2244,8 @@ def serve_reference_check(dev, cfg=None, layers=SERVE_CHECK["layers"],
     layers), float32, TF32 off: the same weights (made on the CPU from a
     seed) and prompts on the card (the kernels) and on the CPU (plain
     versions), prefill and ``steps`` decode steps, each step fed the
-    CPU's greedy token.
+    CPU's greedy token (an encoder-decoder encodes the same seeded
+    frames on both).
     Tolerance on the logits: ``atol`` (5e-4 against logits of order 2:
     products of depth up to 24,576 summed in cuBLAS's and the CPU BLAS's
     orders through two layers, and the kernel's summation order).  The
@@ -2216,6 +2254,7 @@ def serve_reference_check(dev, cfg=None, layers=SERVE_CHECK["layers"],
     from repro_torch.configs import get_config
     from repro_torch.kernels.plane import tree_map
     from repro_torch.models import lm as L
+    from repro_torch.serve import encoder_frames
 
     cfg = cfg or dataclasses.replace(get_config(SERVE_ARCH),
                                      num_layers=layers)
@@ -2224,9 +2263,12 @@ def serve_reference_check(dev, cfg=None, layers=SERVE_CHECK["layers"],
     gparams = tree_map(lambda t: t.to(dev), params)
     prompts = torch.from_numpy(np.random.RandomState(12).randint(
         0, cfg.vocab_size, (batch, prompt)))
+    enc = encoder_frames(cfg, batch, 12, torch.float32, "cpu") \
+        if cfg.is_encdec else None
     worst, checked, agree = 0.0, 0, 0
-    cl, cc = L.prefill(params, cfg, prompts, SERVE_CACHE)
-    gl, gc = L.prefill(gparams, cfg, prompts.to(dev), SERVE_CACHE)
+    cl, cc = L.prefill(params, cfg, prompts, SERVE_CACHE, enc_embed=enc)
+    gl, gc = L.prefill(gparams, cfg, prompts.to(dev), SERVE_CACHE,
+                       enc_embed=None if enc is None else enc.to(dev))
     for step in range(steps + 1):
         g = gl.cpu()
         err = float((g - cl).abs().max())
@@ -2776,22 +2818,36 @@ def lm_reference_check(dev, layers=LM_CHECK["layers"],
     (plain versions), new replica stack to rtol 1e-4, atol 1e-5 and loss
     to rtol 1e-4, as phase 5's rounds.  Returns the errors."""
     from repro_torch.configs import get_config
-    from repro_torch.core.round_step import make_dpu_meta
-    from repro_torch.experiments import lm as tlm
     from repro_torch.experiments.spec import ModelSpec
-    from repro_torch.kernels.plane import ParamPlane
-    from repro_torch.models import lm as L
 
     cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=layers)
     serve_err = serve_reference_check(dev, cfg=cfg, batch=batch,
                                       prompt=prompt, steps=steps)
     m = ModelSpec(kind="lm", arch=LM_ARCH, reduced=False, batch=2 * batch,
                   seq=seq, n_dpu=2, n_micro=1, gamma=max(gammas))
-    params = L.init_lm_params(torch.Generator().manual_seed(13), cfg,
+    rec = lm_round_card_vs_cpu(dev, cfg, m, gammas)
+    return {"serve_logits_max_abs_err": serve_err,
+            "round_max_abs_err": rec["max_abs_err"],
+            "round_loss": rec["loss"]}
+
+
+def lm_round_card_vs_cpu(dev, cfg, m, gammas, seed=13):
+    """One plane-form LM round (``experiments.lm.build_lm_step`` of ``cfg``
+    and the spec ``m``, 2 DPUs with gammas ``gammas``) from the same f32
+    weights (made on the CPU from ``seed``) and batch, on the card
+    (kernels) and on the CPU (plain versions): the new replica stack to
+    rtol 1e-4, atol 1e-5 and the loss to rtol 1e-4, as phase 5's rounds.
+    Returns the error, the losses and the plane's rows."""
+    from repro_torch.core.round_step import make_dpu_meta
+    from repro_torch.experiments import lm as tlm
+    from repro_torch.kernels.plane import ParamPlane
+    from repro_torch.models import lm as L
+
+    params = L.init_lm_params(torch.Generator().manual_seed(seed), cfg,
                               torch.float32)
     plane = ParamPlane.from_tree(params)
     step = tlm.build_lm_step(cfg, m, eta=3e-2, mu=0.01)
-    batch_cpu = tlm.lm_batch(cfg, m, 17, torch.device("cpu"))
+    batch_cpu = tlm.lm_batch(cfg, m, seed + 4, torch.device("cpu"))
     outs = []
     for where in (torch.device("cpu"), dev):
         stack = plane.with_data(plane.broadcast(2).data.to(where)
@@ -2806,13 +2862,13 @@ def lm_reference_check(dev, layers=LM_CHECK["layers"],
     torch.testing.assert_close(gn, cn, rtol=1e-4, atol=1e-5)
     if not (np.isfinite(gl) and abs(gl - cl) <= 1e-4 * abs(cl)):
         raise AssertionError(f"LM round loss {gl} (card) vs {cl} (CPU)")
-    log(f"  LM round ({cfg.name} x{layers} layers f32, R = "
-        f"{plane.data.shape[0]}, seq {seq}, gammas {gammas}) card vs CPU: "
-        f"replica stack max abs err {err:.3e}, loss {gl:.6f} vs {cl:.6f}")
+    R = plane.data.shape[0]
+    log(f"  LM round ({cfg.name} x{cfg.num_layers} layers f32, R = {R}, "
+        f"seq {m.seq}, gammas {gammas}) card vs CPU: replica stack max "
+        f"abs err {err:.3e}, loss {gl:.6f} vs {cl:.6f}")
     del outs, plane, params
     torch.cuda.empty_cache()
-    return {"serve_logits_max_abs_err": serve_err,
-            "round_max_abs_err": err, "round_loss": [gl, cl]}
+    return {"max_abs_err": err, "loss": [gl, cl], "R": R}
 
 
 class _RoundCounter:
@@ -2912,10 +2968,11 @@ def _lm_run(dev, name, over, shapes):
 
 def profile_lm_round(dev, name, over, params):
     """One more round of the preset from ``params`` (the run's trained
-    tree, as both DPUs' replicas), after the counted run, under
-    ``torch.profiler``: wall time, device busy time and the kernels that
-    took the most device time.  The profiler on this card drops records,
-    so the launches are the counters'."""
+    tree, or fresh weights, as both DPUs' replicas), after the counted
+    run, under ``torch.profiler`` (device activity only): wall time,
+    device busy time and the kernels that took the most device time.
+    The profiler on this card drops records, so the launches are the
+    counters'."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2936,27 +2993,31 @@ def profile_lm_round(dev, name, over, params):
     batch = tlm.lm_batch(cfg, m, 99, dev)
     torch.cuda.synchronize()
     before = dict(ops.LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: recording every host op of a whisper-medium
+    # round doubles its wall time (a rehearsal on the CPU records the CPU)
+    acts = [ProfilerActivity.CUDA if dev.type == "cuda"
+            else ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         stack, metrics = step(stack, batch, meta)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counted = {n: ops.LAUNCHES[n] - before[n] for n in before}
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and device_us(e) > 0]
-    busy_us = sum(device_us(e) for e in events)
-    top = sorted(events, key=lambda e: -device_us(e))[:15]
-    table = [{"name": e.key, "calls": e.count,
-              "device_ms": device_us(e) / 1e3} for e in top]
+    # the raw device records: building the profiler's averages over a
+    # whisper-medium round (hundreds of thousands of host ops) takes
+    # minutes, reading the records a second
+    per_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            n, ns = per_name.get(e.name(), (0, 0))
+            per_name[e.name()] = (n + 1, ns + e.duration_ns())
+    busy_us = sum(ns for _, ns in per_name.values()) / 1e3
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:15]
+    table = [{"name": k, "calls": n, "device_ms": ns / 1e6}
+             for k, (n, ns) in top]
     # nova_aggregate_stacked launches nova_aggregate_kernel (replicas = n)
-    mine = {n: [{"calls": e.count, "device_ms": device_us(e) / 1e3}
-                for e in events if k in e.key]
+    mine = {n: [{"calls": c, "device_ms": ns / 1e6}
+                for k2, (c, ns) in per_name.items() if k in k2]
             for n, k in (("fedprox_accum", "fedprox_accum_kernel"),
                          ("nova_aggregate_stacked", "nova_aggregate_kernel"))}
     log(f"  profiled {name} round: wall {wall * 1e3:.1f} ms, device busy "
@@ -2974,16 +3035,26 @@ def profile_lm_round(dev, name, over, params):
             "loss": float(metrics["loss"])}
 
 
+def _row_chunks(R: int, rows: int = 1 << 16):
+    """Slices of at most ``rows`` plane rows covering R: the plain version
+    and the comparison run chunk by chunk, so a check at an LM plane
+    holds no full-size temporary beside the inputs and the kernel's
+    outputs."""
+    return [slice(r, min(r + rows, R)) for r in range(0, R, rows)]
+
+
 def lm_kernel_checks(dev, timer, run_timer, bw, f32_rate, shapes):
-    """Phase 9 (e): ``fedprox_accum`` (per-DPU anchor) and
-    ``nova_aggregate_stacked`` against their plain versions at every
-    shape phase 9 launched them with (``shapes``: {(G, R, form) or (n,
-    R): launches}), f32, with the tolerances of phase 4's rows (two f32
-    ulps of the largest operand; two of the largest |x| plus theta_eta *
-    n of the largest |d|).  Each is timed per call (``Timer``) beside its
-    plain version, its byte bound and, for the stacked form, ``addmm``;
-    the largest (the LM plane) also as a run of 200 launches
-    (``RunTimer``).  Returns the rows."""
+    """Phase 9 (e) and phase 10's rows of phase 4: ``fedprox_accum``
+    (per-DPU anchor) and ``nova_aggregate_stacked`` against their plain
+    versions (chunk by chunk, ``_row_chunks``) at every shape the phase
+    launched them with (``shapes``: {(G, R, form) or (n, R): launches}),
+    f32, with the tolerances of phase 4's rows (two f32 ulps of the
+    largest operand; two of the largest |x| plus theta_eta * n of the
+    largest |d|).  Each is timed per call (``Timer``) beside its plain
+    version, its byte bound and, for the stacked form, ``addmm``; the
+    largest also as a run of 200 launches (``run_timer``, a ``RunTimer``;
+    None leaves that out: at whisper-medium's plane its two copies of the
+    inputs would take 50 GB).  Returns the rows."""
     from repro_torch.kernels import fedprox_update as kfp
     from repro_torch.kernels import nova_aggregate as kna
     from repro_torch.kernels import ref
@@ -3002,14 +3073,19 @@ def lm_kernel_checks(dev, timer, run_timer, bw, f32_rate, shapes):
         active = torch.ones(G, device=dev)
         args = (x, g, anchor, acc, coef, active, 3e-2, 0.01)
         kx, kacc = kfp.fedprox_accum(*args)
-        rx, racc = ref.fedprox_accum_ref(*args)
-        torch.cuda.synchronize()
         atol = 2 * max(_spacing(x), _spacing(g), _spacing(anchor),
                        _spacing(acc))
+        check = None
+        for sl in _row_chunks(R):
+            rx, racc = ref.fedprox_accum_ref(
+                x[:, sl], g[:, sl], anchor[:, sl], acc[:, sl], *args[4:])
+            part = _both(within(kx[:, sl], rx, atol),
+                         within(kacc[:, sl], racc, atol))
+            check = part if check is None else _both(check, part)
         nbytes = 4 * R * LANE * 6 * G
         row = {"kernel": "fedprox_accum", "G": G, "R": R, "dtype": "float32",
                "anchor": form, "path_launches": n_path, "bytes": nbytes,
-               **_both(within(kx, rx, atol), within(kacc, racc, atol))}
+               **check}
         del kx, kacc, rx, racc
         row["ms"] = timer(lambda: kfp.fedprox_accum(*args))
         row["plain_ms"] = timer(lambda: ref.fedprox_accum_ref(*args))
@@ -3017,7 +3093,7 @@ def lm_kernel_checks(dev, timer, run_timer, bw, f32_rate, shapes):
         row["bound_ms"] = max(nbytes / bw, 7 * G * R * LANE / f32_rate) * 1e3
         row["bound_by"] = "bytes"
         del x, g, acc, anchor, args
-        if R == R_max:
+        if R == R_max and run_timer is not None:
             row["run_ms"] = run_timer(
                 lambda x, g, a, acc: kfp.fedprox_accum(
                     x, g, a, acc, coef, active, 3e-2, 0.01),
@@ -3033,14 +3109,17 @@ def lm_kernel_checks(dev, timer, run_timer, bw, f32_rate, shapes):
         w = w / w.sum()
         theta_eta = 2 * 3e-2
         k = kna.nova_aggregate_stacked(x, d, w, theta_eta)
-        r = ref.nova_aggregate_ref(x, d, w, theta_eta)
-        torch.cuda.synchronize()
         atol = 2 * _spacing(x) + theta_eta * n * _spacing(d)
+        check = None
+        for sl in _row_chunks(R):
+            part = within(k[:, sl], ref.nova_aggregate_ref(
+                x[:, sl], d[:, sl], w, theta_eta), atol)
+            check = part if check is None else _both(check, part)
         nbytes = 4 * R * LANE * 3 * n
         row = {"kernel": "nova_aggregate_stacked", "G": n, "R": R,
                "dtype": "float32", "anchor": "-", "path_launches": n_path,
-               "bytes": nbytes, **within(k, r, atol)}
-        del k, r
+               "bytes": nbytes, **check}
+        del k
         M = -theta_eta * torch.outer(torch.ones(n, device=dev), w)
         row["ms"] = timer(lambda: kna.nova_aggregate_stacked(
             x, d, w, theta_eta))
@@ -3051,7 +3130,7 @@ def lm_kernel_checks(dev, timer, run_timer, bw, f32_rate, shapes):
         row["bound_ms"] = max(nbytes / bw, 4 * n * R * LANE / f32_rate) * 1e3
         row["bound_by"] = "bytes"
         del x, d
-        if R == R_max:
+        if R == R_max and run_timer is not None:
             row["run_ms"] = run_timer(
                 lambda x, d: kna.nova_aggregate_stacked(x, d, w, theta_eta),
                 lambda: (randn((n, R, LANE)), randn((n, R, LANE))), nbytes)
@@ -3105,6 +3184,381 @@ def drive_lm_phase(dev, bw, f32_rate):
         "serve_decode_profile": s_profile, "check": check,
         "lm_smoke": smoke, "lm_mamba2_130m": full, "round_profile": profile,
         "kernel_rows": rows}
+
+
+# ------------------- phase 10: MoE, the flash backward, enc-dec --
+
+# (a), (b): (arch, layers, runs, gen, cache_len); depth cut in whole
+# periods (jamba's is 8 layers, llama4's 2), widths full, bf16
+P10_SERVE = [
+    ("jamba-v0.1-52b", 16, [("8 x 512", 8, 512)], 32, 1024),
+    ("llama4-maverick-400b-a17b", 2, [("8 x 512", 8, 512)], 4, 1024),
+]
+# (c) whisper-medium at full width and depth through launch.train, at a
+# step size of 3e-3: at launch.train's default 3e-2 the full-width loss
+# rises over the first rounds
+WHISPER = "whisper-medium"
+WHISPER_TRAIN = {"steps": 3, "batch": 8, "seq": 256, "n-dpu": 2,
+                 "gamma": 2, "eta": 3e-3}
+WHISPER_SERVE = ([("8 x 64", 8, 64)], 32, 128)
+# (d) the flash backward at starcoder2-15b's attention shape, past its
+# 4096 window
+FLASH_SHAPE = {"B": 1, "S": 6144, "Hq": 48, "Hkv": 4, "D": 128,
+               "window": 4096}
+FLASH_REL = 1e-5
+# (e) card vs CPU at the reduced size, f32
+P10_CHECK_ARCHS = ["jamba-v0.1-52b", "llama4-maverick-400b-a17b",
+                   "arctic-480b", "qwen3-32b", "whisper-medium"]
+P10_CHECK = {"batch": 2, "prompt": 64, "steps": 4, "seq": 64,
+             "gammas": (2, 1)}
+
+
+class _RouteRecorder:
+    """Wraps ``models.moe.moe_route`` for the length of a ``with`` block
+    and keeps every routing it returns: its device, shape (G, T, k),
+    capacity and the expert ids and kept mask."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._mod, self._real = moe, moe.moe_route
+        real = self._real
+
+        def moe_route(router, xg, m, C):
+            r = real(router, xg, m, C)
+            self.calls.append({"device": xg.device.type, "C": C,
+                               "shape": tuple(r["expert_ids"].shape),
+                               "expert_ids": r["expert_ids"],
+                               "kept": r["kept"]})
+            return r
+
+        moe.moe_route = moe_route
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.moe_route = self._real
+
+    def summary(self) -> list:
+        """Per distinct (G, T, k, C): calls and the share of (token,
+        choice) pairs kept."""
+        out = {}
+        for c in self.calls:
+            key = c["shape"] + (c["C"],)
+            n, kept, pairs = out.get(key, (0, 0, 0))
+            out[key] = (n + 1, kept + int(c["kept"].sum()),
+                        pairs + c["kept"].numel())
+        return [{"G": k[0], "T": k[1], "k": k[2], "C": k[3], "calls": n,
+                 "kept_share": kept / pairs}
+                for k, (n, kept, pairs) in sorted(out.items())]
+
+
+class _SwaRecorder:
+    """Wraps ``kernels.swa_decode_attention.swa_decode_attention`` for the
+    length of a ``with`` block and counts its launch shapes: {(B, Hq,
+    Hkv, D, S, dtype): Counter(cache_len -> launches)}."""
+
+    def __init__(self):
+        self.shapes = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import swa_decode_attention as kswa
+        self._mod, self._real = kswa, kswa.swa_decode_attention
+        real = self._real
+
+        def swa_decode_attention(q, k_cache, v_cache, cache_len):
+            key = (q.shape[0], q.shape[1], k_cache.shape[2], q.shape[2],
+                   k_cache.shape[1], q.dtype)
+            self.shapes.setdefault(key, Counter())[int(cache_len)] += 1
+            return real(q, k_cache, v_cache, cache_len)
+
+        kswa.swa_decode_attention = swa_decode_attention
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.swa_decode_attention = self._real
+
+    def cases(self) -> list:
+        """swa_checks' cases: the first and last cache_len of each shape,
+        with their launches."""
+        out = []
+        for (B, Hq, Hkv, D, S, dt), cls in sorted(
+                self.shapes.items(), key=lambda kv: str(kv[0])):
+            for cl in sorted({min(cls), max(cls)}):
+                out.append((B, Hq, Hkv, D, S, cl, dt, cls[cl]))
+        return out
+
+
+def _serve_full(dev, arch, layers, runs, gen, cache_len):
+    """(a) / (b) / the whisper serve of (c): ``drive_serve_path`` on the
+    full-width config cut to ``layers`` (None: all), with the MoE
+    routings recorded.  Returns the launches, the records and the
+    routing summary."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    with _RouteRecorder() as routes:
+        launches, _, records, prof, init = drive_serve_path(
+            dev, cfg=cfg, runs=runs, gen=gen, cache_len=cache_len)
+    summary = routes.summary()
+    for r in summary:
+        log(f"    MoE routing G {r['G']} x T {r['T']} x top-{r['k']}, "
+            f"capacity {r['C']}: {r['calls']} calls, "
+            f"{100 * r['kept_share']:.2f} % of pairs kept")
+    for rec in records:
+        rec["launches_per_step"] = rec["launches"][
+            "swa_decode_attention"] / (gen - 1)
+    return launches, {"init": init, "runs": records, "decode_profile": prof,
+                      "routing": summary, "layers": cfg.num_layers}
+
+
+def drive_whisper_train(dev, shapes):
+    """(c) whisper-medium at full width and depth through
+    ``launch.train.main`` (``WHISPER_TRAIN``), counters set to 0 just
+    before and read just after: every round launches ``fedprox_accum``
+    gamma times and ``nova_aggregate_stacked`` once and nothing else;
+    losses finite and the last below the first (``run_lm`` raises
+    otherwise).  Then one profiled round from fresh weights."""
+    from repro_torch.experiments.lm import lm_config
+    from repro_torch.experiments.spec import ModelSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import lm as L
+
+    t = WHISPER_TRAIN
+    argv = ["--arch", WHISPER, "--device", str(dev)] + [
+        a for k, v in t.items() for a in (f"--{k}", str(v))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                       # counts to 0: the path
+    t0 = time.perf_counter()
+    with _RoundCounter() as rc, shapes:
+        losses = train.main(argv)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)              # read just after
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(launches, 0)
+    want.update(fedprox_accum=t["gamma"], nova_aggregate_stacked=1)
+    for i, r in enumerate(rc.rounds):
+        if r["launches"] != want:
+            raise AssertionError(f"whisper round {i}: launches "
+                                 f"{r['launches']} != {want}")
+    if len(rc.rounds) != t["steps"] or not all(np.isfinite(losses)):
+        raise AssertionError(f"whisper: {len(rc.rounds)} rounds, losses "
+                             f"{losses}")
+    secs = [r["seconds"] for r in rc.rounds]
+    per_round = statistics.median(secs[1:])
+    tokens = t["batch"] * t["seq"] * t["gamma"]
+    m = ModelSpec(kind="lm", arch=WHISPER, reduced=False, batch=t["batch"],
+                  seq=t["seq"], n_dpu=t["n-dpu"], gamma=t["gamma"])
+    cfg = lm_config(m)
+    R = max(R for _, R, _ in shapes.shapes["fedprox_accum"])
+    rec = {"argv": argv, "losses": losses, "round_s": secs,
+           "round_s_median_after_first": per_round,
+           "train_tokens_per_round": tokens,
+           "train_tokens_per_s": tokens / per_round, "wall_s": wall,
+           "peak_device_bytes": peak, "launches": launches, "R": R}
+    log(f"  whisper-medium training ({cfg.num_layers} + "
+        f"{cfg.encoder_layers} layers, plane R = {R}, {t['n-dpu']} DPUs, "
+        f"batch {t['batch']} x seq {t['seq']} + {cfg.encoder_seq} frames, "
+        f"gamma {t['gamma']}, eta {t['eta']}, {t['steps']} rounds): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; round 0 {secs[0]:.3f} s, "
+        f"then {per_round:.3f} s median, {rec['train_tokens_per_s']:.0f} "
+        f"training tokens/s; peak {peak / 2**30:.2f} GiB; launches "
+        f"{launches}")
+    over = {"model.arch": WHISPER, "model.reduced": False,
+            "model.batch": t["batch"], "model.seq": t["seq"],
+            "model.n_dpu": t["n-dpu"], "model.gamma": t["gamma"],
+            "engine.eta": t["eta"]}
+    params = L.init_lm_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg, torch.float32)
+    rec["round_profile"] = profile_lm_round(dev, "lm_smoke", over, params)
+    del params
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def flash_check(dev, timer):
+    """(d) the flash backward at starcoder2-15b's attention shape
+    (``FLASH_SHAPE``, f32, TF32 off, causal with the 4096 window past
+    it): out, dq, dk, dv of ``models.attention.blocked_attention`` against
+    autograd through a naive masked attention (scores of every pair, the
+    KV heads repeated over their G query heads) on the same card
+    tensors, each within ``FLASH_REL`` of the naive one's largest entry.
+    Both timed (forward + backward, median of 5) with their peaks."""
+    from repro_torch.models import attention as A
+
+    f = FLASH_SHAPE
+    B, S, Hq, Hkv, D, W = (f[k] for k in ("B", "S", "Hq", "Hkv", "D",
+                                          "window"))
+    G = Hq // Hkv
+    gen = torch.Generator(device=dev).manual_seed(77)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q = randn(B, S, Hq, D).requires_grad_(True)
+    k = randn(B, S, Hkv, D).requires_grad_(True)
+    v = randn(B, S, Hkv, D).requires_grad_(True)
+    dout = randn(B, S, Hq, D)
+    pos = torch.arange(S, device=dev)
+    mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < W)
+
+    def flash():
+        out = A.blocked_attention(q, k, v, causal=True, window=W)
+        return (out,) + torch.autograd.grad(out, (q, k, v), dout)
+
+    def naive():
+        kk, vv = k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kk) * A._scale(D)
+        p = torch.softmax(torch.where(mask, s, A.NEG_INF), dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", p, vv)
+        return (out,) + torch.autograd.grad(out, (q, k, v), dout)
+
+    rec = {"shape": dict(f)}
+    results = {}
+    for name, fn in (("flash", flash), ("naive", naive)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        results[name] = [t.detach() for t in fn()]
+        torch.cuda.synchronize()
+        rec[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec[f"{name}_ms"] = timer(fn, iters=5, warmup=1)
+    errs = {}
+    for name, got, want in zip(("out", "dq", "dk", "dv"), results["flash"],
+                               results["naive"]):
+        scale = float(want.abs().max())
+        errs[name] = {"max_abs_err": float((got - want).abs().max()),
+                      "max_abs": scale, "tol": FLASH_REL * scale}
+        if not errs[name]["max_abs_err"] <= errs[name]["tol"]:
+            raise AssertionError(f"flash backward at {f}: {name} "
+                                 f"{errs[name]}")
+    rec["errors"] = errs
+    log(f"  flash backward at B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, "
+        f"window {W} (f32): " + ", ".join(
+            f"{n} {e['max_abs_err']:.2e} of {e['max_abs']:.2f}"
+            for n, e in errs.items()) + f" (tol {FLASH_REL:g} of each max); "
+        f"forward + backward {rec['flash_ms']:.1f} ms, peak "
+        f"{rec['flash_peak_bytes'] / 2**30:.2f} GiB; naive "
+        f"{rec['naive_ms']:.1f} ms, peak "
+        f"{rec['naive_peak_bytes'] / 2**30:.2f} GiB")
+    del q, k, v, dout, results
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _same_routing(routes: _RouteRecorder, what: str, dev) -> int:
+    """The card's routings equal the CPU's, call for call (expert ids and
+    kept mask); raises naming the flips otherwise.  Returns the calls
+    compared (none in a rehearsal on the CPU, which has no card)."""
+    if dev.type == "cpu":
+        return 0
+    cpu = [c for c in routes.calls if c["device"] == "cpu"]
+    card = [c for c in routes.calls if c["device"] != "cpu"]
+    if len(cpu) != len(card):
+        raise AssertionError(f"{what}: {len(cpu)} CPU routings, "
+                             f"{len(card)} on the card")
+    for i, (a, b) in enumerate(zip(cpu, card)):
+        ids = b["expert_ids"].cpu() != a["expert_ids"]
+        kept = b["kept"].cpu() != a["kept"]
+        if bool(ids.any()) or bool(kept.any()):
+            raise AssertionError(
+                f"{what}: routing {i} {a['shape']} flips {int(ids.sum())} "
+                f"expert choices and {int(kept.sum())} capacity drops "
+                "between the CPU and the card")
+    return len(cpu)
+
+
+def p10_reference_checks(dev):
+    """(e) every ``P10_CHECK_ARCHS`` config at its reduced size, f32, TF32
+    off, the same weights on the card and on the CPU: prefill and decode
+    logits to ``atol`` 5e-4 (``serve_reference_check``) and one
+    plane-form CE-FL LM round to rtol 1e-4, atol 1e-5
+    (``lm_round_card_vs_cpu``), each after checking that every MoE
+    routing (expert ids, kept mask) agrees."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.experiments.spec import ModelSpec
+
+    c = P10_CHECK
+    out = {}
+    for arch in P10_CHECK_ARCHS:
+        cfg = reduced(get_config(arch))
+        with _RouteRecorder() as routes:
+            serve_err = serve_reference_check(
+                dev, cfg=cfg, batch=c["batch"], prompt=c["prompt"],
+                steps=c["steps"])
+        n_serve = _same_routing(routes, f"{arch} serving", dev)
+        m = ModelSpec(kind="lm", arch=arch, reduced=True,
+                      batch=2 * c["batch"], seq=c["seq"], n_dpu=2,
+                      n_micro=1, gamma=max(c["gammas"]))
+        with _RouteRecorder() as routes:
+            rnd = lm_round_card_vs_cpu(dev, cfg, m, c["gammas"])
+        n_round = _same_routing(routes, f"{arch} round", dev)
+        out[arch] = {"serve_logits_max_abs_err": serve_err,
+                     "round_max_abs_err": rnd["max_abs_err"],
+                     "round_loss": rnd["loss"],
+                     "routings_equal": {"serve": n_serve, "round": n_round}}
+        if n_serve or n_round:
+            log(f"    {arch}: MoE routing equal on card and CPU in "
+                f"{n_serve} serving and {n_round} round calls")
+    return out
+
+
+def drive_p10_phase(dev, timer):
+    """Phase 10: (a) jamba-v0.1-52b, 16 of 32 layers, and (b)
+    llama4-maverick-400b-a17b, one period, served at full width in bf16;
+    (c) whisper-medium trained at full width and depth through
+    ``launch.train`` with a profiled round, then served; (d) the flash
+    backward at starcoder2-15b's attention shape against a naive
+    gradient; (e) the reduced configs card vs CPU.  Returns the launches
+    of (a)-(c), the kernels' launch shapes (fedprox_accum /
+    nova_aggregate_stacked: a ``_ShapeRecorder`` over (c) and (e);
+    swa_decode_attention: a ``_SwaRecorder`` over all) and the records."""
+    launches = Counter()
+    records = {"seconds": {}}
+    shapes = _ShapeRecorder()
+
+    def part(name, t0):
+        records["seconds"][name] = secs = time.perf_counter() - t0
+        log(f"    ({name}: {secs:.1f} s)")
+
+    with _SwaRecorder() as swa:
+        for (arch, layers, runs, gen, cache_len), tag in zip(P10_SERVE,
+                                                             "ab"):
+            log(f"  ({tag}) serve {arch} at full width, {layers} layers "
+                f"(bf16, random weights): {runs[0][0]}, {gen} tokens, "
+                f"cache {cache_len}")
+            t0 = time.perf_counter()
+            got, records[arch] = _serve_full(dev, arch, layers, runs, gen,
+                                             cache_len)
+            launches.update(got)
+            torch.cuda.empty_cache()
+            part(tag, t0)
+        log(f"  (c) train {WHISPER} at full width and depth through "
+            "launch.train, then serve it")
+        t0 = time.perf_counter()
+        got, records["whisper_train"] = drive_whisper_train(dev, shapes)
+        launches.update(got)
+        part("c train", t0)
+        t0 = time.perf_counter()
+        runs, gen, cache_len = WHISPER_SERVE
+        got, records["whisper_serve"] = _serve_full(dev, WHISPER, None,
+                                                    runs, gen, cache_len)
+        launches.update(got)
+        part("c serve", t0)
+        log("  (d) the flash backward at starcoder2-15b's attention shape")
+        t0 = time.perf_counter()
+        records["flash"] = flash_check(dev, timer)
+        part("d", t0)
+        log("  (e) reduced configs, f32: card vs CPU (serving, one round)")
+        t0 = time.perf_counter()
+        with shapes:
+            records["check"] = p10_reference_checks(dev)
+        part("e", t0)
+    return dict(launches), shapes, swa, records
 
 
 # ---------------------------------------------------------------- main --
@@ -3202,6 +3656,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     l_launches, l_records = drive_lm_phase(dev, bw, f32_rate)
 
+    log("phase 10: MoE, the flash backward and the encoder-decoder: "
+        "jamba-v0.1-52b (16 layers) and llama4-maverick (one period) "
+        "served at full width; whisper-medium trained at full width and "
+        "depth through launch.train, then served; the flash backward at "
+        "starcoder2-15b's attention shape; reduced configs card vs CPU")
+    torch.cuda.empty_cache()
+    timer = Timer(dev)
+    x_launches, x_shapes, x_swa, x_records = drive_p10_phase(dev, timer)
+    del timer
+
     log(f"phase 4: kernels vs plain versions at the paths' shapes and extra "
         f"cases ({smi})")
     timer = Timer(dev)
@@ -3222,7 +3686,14 @@ def main() -> int:
         dev, timer, bw, f32_rate, a_shapes["fedprox_update"])
     w_rows, main_rows["swa_decode_attention"] = swa_checks(
         dev, timer, bw, f32_rate, bf16_rate, s_shapes)
-    rows += r_rows + s_rows + u_rows + w_rows
+    log("  phase 10's path shapes: swa_decode_attention (its configs' "
+        "heads), fedprox_accum and nova_aggregate_stacked (whisper-medium's "
+        "plane and the reduced rounds)")
+    x_rows = swa_checks(dev, timer, bw, f32_rate, bf16_rate, None,
+                        cases=x_swa.cases())[0]
+    x_rows += lm_kernel_checks(dev, timer, None, bw, f32_rate,
+                               x_shapes.shapes)
+    rows += r_rows + s_rows + u_rows + w_rows + x_rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel case(s) disagree with the "
@@ -3247,7 +3718,7 @@ def main() -> int:
             "replaces": REPLACES[name][1],
             "launches": sum(c.get(name, 0) for c in (
                 launches, t_launches, m_launches, a_launches, s_launches,
-                c_launches, p_launches, l_launches)),
+                c_launches, p_launches, l_launches, x_launches)),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3286,6 +3757,12 @@ def main() -> int:
         "phase8_launch_shapes": {k: [list(key) + [n] for key, n in c.items()]
                                  for k, c in p_shapes.items()},
         "phase9": l_records, "phase9_launches": l_launches,
+        "phase10": x_records, "phase10_launches": x_launches,
+        "phase10_launch_shapes": {
+            k: [list(key) + [n] for key, n in c.items()]
+            for k, c in x_shapes.shapes.items()},
+        "phase10_swa_cases": [list(c) for c in x_swa.cases()],
+        "phase10_kernel_rows": x_rows,
         "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     full, check = l_records["lm_mamba2_130m"], l_records["check"]
     log(f"phase 9 summary: lm_mamba2_130m loss {full['losses'][0]:.4f} -> "
@@ -3297,6 +3774,19 @@ def main() -> int:
         + "; ".join(f"{r['kernel']} {r['ms']:.4f} ms (bound "
                     f"{r['bound_ms']:.4f})" for r in l_records["kernel_rows"]
                     if r["R"] == full["R"]))
+    wt, fl = x_records["whisper_train"], x_records["flash"]
+    log("phase 10 summary: " + "; ".join(
+        f"{a} x{x_records[a]['layers']} decode "
+        f"{x_records[a]['runs'][0]['decode_ms_median']:.2f} ms/step "
+        f"({x_records[a]['runs'][0]['launches_per_step']:.0f} swa "
+        f"launches a step), prefill {x_records[a]['runs'][0]['prefill_s']:.3f}"
+        f" s" for a in (a for a, *_ in P10_SERVE))
+        + f"; whisper-medium loss {wt['losses'][0]:.4f} -> "
+        f"{wt['losses'][-1]:.4f}, {wt['round_s_median_after_first']:.3f} s "
+        f"a round, {wt['train_tokens_per_s']:.0f} tokens/s, device busy "
+        f"{100 * wt['round_profile']['busy_share']:.1f} %, serve decode "
+        f"{x_records['whisper_serve']['runs'][0]['decode_ms_median']:.2f} "
+        f"ms/step; flash dq err {fl['errors']['dq']['max_abs_err']:.2e}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

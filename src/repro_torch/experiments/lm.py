@@ -33,8 +33,9 @@ from repro_torch.training.checkpoint import save_checkpoint
 
 def lm_config(m: ModelSpec) -> ModelConfig:
     """The spec's architecture, cut to its smoke size when ``reduced``;
-    raises if the batch does not split over the DPUs and microbatches or
-    the sequence over the SSD chunks."""
+    raises if the batch does not split over the DPUs and microbatches,
+    the sequence over the SSD chunks, or a microbatch's tokens over the
+    MoE's token groups (``models.moe.moe_forward``)."""
     cfg = get_config(m.arch)
     if m.reduced:
         cfg = reduced(cfg)
@@ -44,6 +45,10 @@ def lm_config(m: ModelSpec) -> ModelConfig:
     if cfg.ssm is not None and m.seq % cfg.ssm.chunk_size:
         raise ValueError(f"seq {m.seq} is not a multiple of {cfg.name}'s "
                          f"SSD chunk {cfg.ssm.chunk_size}")
+    tokens = m.batch // (m.n_dpu * m.n_micro) * m.seq
+    if cfg.moe is not None and tokens % min(1024, tokens):
+        raise ValueError(f"a microbatch of {tokens} tokens is not a whole "
+                         f"number of {cfg.name}'s 1024-token MoE groups")
     return cfg
 
 

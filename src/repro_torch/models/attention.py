@@ -1,11 +1,11 @@
 """Attention of the model track (counterpart of ``repro.models.attention``):
-blocked causal / sliding-window attention for prefill (forward only), and
+blocked causal / sliding-window / bidirectional attention for training,
+prefill, the encoder and cross-attention, with the flash backward, and
 the plain single-token decode.  The decode step of the serving path runs
 the ``swa_decode_attention`` kernel instead (``kernels/ops.py``).
 
 All softmax statistics are kept in float32 whatever the activation dtype.
-The flash backward (training) and the sequence-sharded decode are not
-ported yet.
+The sequence-sharded decode is not ported yet.
 """
 from __future__ import annotations
 
@@ -32,52 +32,73 @@ def _scale(D: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(D)))
 
 
-def blocked_attention(q, k, v, *, window: Optional[int] = None,
-                      q_block: int = 512, kv_block: int = 512):
-    """Causal online-softmax attention over (q_block x kv_block) tiles,
-    forward only (``_blocked_attention_fwd_only`` of the JAX package; its
-    bidirectional form serves the encoder, which is not ported yet).
+def _masked(qs: int, qb: int, ks: int, kb: int, causal: bool,
+            window: Optional[int]) -> bool:
+    """Whether the masks cover the (q rows qs.., kv rows ks..) tile
+    entirely."""
+    if causal and ks >= qs + qb:
+        return True
+    return window is not None and qs - (ks + kb - 1) >= window
 
-    q: (B, S, Hq, D); k, v: (B, S_kv, Hkv, D).  Returns (B, S, Hq, D) in
-    q's dtype.  ``window``: keys with q_pos - k_pos >= window are masked.
+
+def _tile_scores(qq, k, ks, kb, qpos, pos, causal, window, scale):
+    """Masked f32 scores of one tile: qq (B*Hkv, G*qb, D) against the kv
+    rows ks..ks+kb of k (B, S_kv, Hkv, D); returns (B, Hkv, G, qb, kb)."""
+    B, _, Hkv, D = k.shape
+    kk = k[:, ks:ks + kb].permute(0, 2, 3, 1).reshape(B * Hkv, D, kb)
+    s = matmul_f32(qq, kk).view(B, Hkv, -1, qpos.numel(), kb) * scale
+    kpos = pos[ks:ks + kb]
+    if causal or window is not None:
+        mask = torch.ones((qpos.numel(), kb), dtype=torch.bool,
+                          device=s.device)
+        if causal:
+            mask &= qpos[:, None] >= kpos[None, :]
+        if window is not None:
+            mask &= qpos[:, None] - kpos[None, :] < window
+        s = torch.where(mask, s, NEG_INF)
+    return s
+
+
+def _q_tile(q5, qs, qb):
+    """(B, qb, Hkv, G, D) rows qs.. of q5 as (B*Hkv, G*qb, D)."""
+    B, _, Hkv, G, D = q5.shape
+    return q5[:, qs:qs + qb].permute(0, 2, 3, 1, 4).reshape(B * Hkv,
+                                                           G * qb, D)
+
+
+def _blocked_attention_fwd_only(q, k, v, *, causal=True, window=None,
+                                q_block=512, kv_block=512):
+    """Online-softmax attention over (q_block x kv_block) tiles.  Returns
+    (out (B, S, Hq, D) in q's dtype, lse (B, Hkv, G, S) f32).
+
     Scores q.k are summed in f32 (bf16 operands multiplied exactly), p.v
     in f32.  A tile that the masks cover entirely is skipped: the JAX
     package runs it and adds exp(-1e30 - m) = 0 (or, before a row's first
     valid key, terms that the next valid tile scales by exp(-1e30 - m) =
-    0), so the result is the same.
-    """
+    0), so the result is the same."""
     B, S, Hq, D = q.shape
     S_kv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qb, kb = _fit(S, q_block), _fit(S_kv, kv_block)
     scale = _scale(D)
-    out = torch.empty((B, S, Hkv, G, D), dtype=torch.float32,
-                      device=q.device)
+    dev = q.device
+    out = torch.empty((B, S, Hkv, G, D), dtype=torch.float32, device=dev)
+    lse = torch.empty((B, Hkv, G, S), dtype=torch.float32, device=dev)
     q5 = q.reshape(B, S, Hkv, G, D)
-    pos = torch.arange(max(S, S_kv), device=q.device)
+    pos = torch.arange(max(S, S_kv), device=dev)
     for qs in range(0, S, qb):
-        # (B, qb, Hkv, G, D) -> (B*Hkv, G*qb, D)
-        qq = q5[:, qs:qs + qb].permute(0, 2, 3, 1, 4).reshape(
-            B * Hkv, G * qb, D)
+        qq = _q_tile(q5, qs, qb)
         qpos = pos[qs:qs + qb]
         acc = torch.zeros((B, Hkv, G, qb, D), dtype=torch.float32,
-                          device=q.device)
+                          device=dev)
         m = torch.full((B, Hkv, G, qb), NEG_INF, dtype=torch.float32,
-                       device=q.device)
-        lsum = torch.zeros((B, Hkv, G, qb), dtype=torch.float32,
-                           device=q.device)
+                       device=dev)
+        lsum = torch.zeros((B, Hkv, G, qb), dtype=torch.float32, device=dev)
         for ks in range(0, S_kv, kb):
-            if ks >= qs + qb or (window is not None
-                                 and qs - (ks + kb - 1) >= window):
-                continue   # the causal or the window mask covers the tile
-            kk = k[:, ks:ks + kb].permute(0, 2, 3, 1).reshape(B * Hkv, D, kb)
+            if _masked(qs, qb, ks, kb, causal, window):
+                continue
             vv = v[:, ks:ks + kb].permute(0, 2, 1, 3).reshape(B * Hkv, kb, D)
-            s = matmul_f32(qq, kk).view(B, Hkv, G, qb, kb) * scale
-            kpos = pos[ks:ks + kb]
-            mask = qpos[:, None] >= kpos[None, :]
-            if window is not None:
-                mask &= qpos[:, None] - kpos[None, :] < window
-            s = torch.where(mask, s, NEG_INF)
+            s = _tile_scores(qq, k, ks, kb, qpos, pos, causal, window, scale)
             m_new = torch.maximum(m, torch.amax(s, dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -87,7 +108,99 @@ def blocked_attention(q, k, v, *, window: Optional[int] = None,
             m = m_new
         blk = acc / torch.clamp(lsum[..., None], min=1e-30)
         out[:, qs:qs + qb] = blk.permute(0, 3, 1, 2, 4)
-    return out.reshape(B, S, Hq, D).to(q.dtype)
+        lse[..., qs:qs + qb] = m + torch.log(torch.clamp(lsum, min=1e-30))
+    return out.reshape(B, S, Hq, D).to(q.dtype), lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal, window, q_block, kv_block):
+    """The FlashAttention-2 backward of the JAX package's ``_flash_bwd``:
+    per (kv block, q block) tile, p = exp(s - lse) recomputed, delta =
+    rowsum(dout * out) in f32; dq accumulated over kv blocks, dk / dv over
+    q blocks and over the G query heads of each KV head, in f32, each cast
+    to its input's dtype.  Tiles that the masks cover entirely are skipped
+    (the JAX package adds exact zeros there)."""
+    B, S, Hq, D = q.shape
+    S_kv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qb, kb = _fit(S, q_block), _fit(S_kv, kv_block)
+    scale = _scale(D)
+    dev = q.device
+    f32 = torch.float32
+    q5 = q.reshape(B, S, Hkv, G, D)
+    do5 = dout.reshape(B, S, Hkv, G, D)
+    # delta_i = rowsum(dout * out): (B, Hkv, G, S)
+    delta = torch.einsum("bskgd,bskgd->bkgs", do5.to(f32),
+                         out.reshape(B, S, Hkv, G, D).to(f32))
+    pos = torch.arange(max(S, S_kv), device=dev)
+    dq = torch.zeros((B * Hkv, S // qb, G * qb, D), dtype=f32, device=dev)
+    dk = torch.empty((B, S_kv, Hkv, D), dtype=f32, device=dev)
+    dv = torch.empty((B, S_kv, Hkv, D), dtype=f32, device=dev)
+    for ks in range(0, S_kv, kb):
+        kk = k[:, ks:ks + kb].permute(0, 2, 1, 3).reshape(B * Hkv, kb, D)
+        vv = v[:, ks:ks + kb].permute(0, 2, 1, 3).reshape(B * Hkv, kb, D)
+        kk, vv = kk.to(f32), vv.to(f32)
+        dk_j = torch.zeros((B * Hkv, kb, D), dtype=f32, device=dev)
+        dv_j = torch.zeros((B * Hkv, kb, D), dtype=f32, device=dev)
+        for i, qs in enumerate(range(0, S, qb)):
+            if _masked(qs, qb, ks, kb, causal, window):
+                continue
+            qq = _q_tile(q5, qs, qb)
+            s = _tile_scores(qq, k, ks, kb, pos[qs:qs + qb], pos, causal,
+                             window, scale)
+            p = torch.exp(s - lse[..., qs:qs + qb, None])  # (B,Hkv,G,qb,kb)
+            p = p.view(B * Hkv, G * qb, kb)
+            do = _q_tile(do5, qs, qb).to(f32)              # (B*Hkv,G*qb,D)
+            dv_j += torch.bmm(p.transpose(1, 2), do)
+            dp = torch.bmm(do, vv.transpose(1, 2))
+            dlt = delta[..., qs:qs + qb].reshape(B * Hkv, G * qb, 1)
+            ds = p * (dp - dlt) * scale
+            dq[:, i] += torch.bmm(ds, kk)
+            dk_j += torch.bmm(ds.transpose(1, 2), qq.to(f32))
+        dk[:, ks:ks + kb] = dk_j.view(B, Hkv, kb, D).transpose(1, 2)
+        dv[:, ks:ks + kb] = dv_j.view(B, Hkv, kb, D).transpose(1, 2)
+    # (B*Hkv, nq, G*qb, D) -> (B, S, Hq, D)
+    dq = dq.view(B, Hkv, S // qb, G, qb, D).permute(0, 2, 4, 1, 3, 5)
+    return (dq.reshape(B, S, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Blocked attention whose backward recomputes the probabilities per
+    tile: the forward saves only q, k, v, out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_block, kv_block):
+        out, lse = _blocked_attention_fwd_only(
+            q, k, v, causal=causal, window=window, q_block=q_block,
+            kv_block=kv_block)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, window, q_block, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout.contiguous(),
+                                *ctx.blocks)
+        return dq, dk, dv, None, None, None, None
+
+
+def blocked_attention(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None,
+                      q_block: int = 512, kv_block: int = 512):
+    """Memory-O(S * block) attention with online softmax.
+
+    q: (B, S, Hq, D); k, v: (B, S_kv, Hkv, D).  Returns (B, S, Hq, D) in
+    q's dtype.  ``causal``: mask keys after the query (the decoder); off
+    for the encoder and cross-attention.  ``window``: keys with q_pos -
+    k_pos >= window are masked.  Under autograd the backward is the flash
+    backward (:func:`_flash_bwd`), which keeps only q, k, v, out and the
+    f32 log-sum-exp; without it no graph is recorded."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, q_block,
+                                     kv_block)
+    return _blocked_attention_fwd_only(q, k, v, causal=causal, window=window,
+                                       q_block=q_block, kv_block=kv_block)[0]
 
 
 def decode_attention_plain(q, k_cache, v_cache, cache_len, *,

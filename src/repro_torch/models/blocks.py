@@ -1,13 +1,13 @@
 """Decoder layers and period specs of the model track (counterpart of
-``repro.models.blocks``): attention layers (``"A"``) with a dense MLP and
-Mamba-2 layers (``"M"``).
+``repro.models.blocks``): attention (``"A"``) and Mamba-2 (``"M"``)
+mixers, each followed by a dense MLP or an MoE (with the dense residual
+or shared expert as the layer's ``mlp``), and the encoder-decoder's
+cross-attention.
 
 Layers are grouped in "periods": the smallest repeating pattern of layer
 kinds and MoE placement.  Params of one period are a dict ``{"layer_0":
 {...}, ...}``; the full stack adds a leading period axis to every leaf,
-as in the JAX package, and the forward passes take views of it.  MoE
-layers (``repro.models.moe``) and the encoder-decoder's cross-attention
-are not ported yet: they raise ``NotImplementedError``.
+as in the JAX package, and the forward passes take views of it.
 """
 from __future__ import annotations
 
@@ -20,9 +20,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.plane import tree_map, tree_paths
+from repro_torch.kernels.plane import tree_from_paths, tree_paths
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (apply_rope, dense_init, rms_norm,
                                        rope_frequencies)
 
@@ -55,23 +56,10 @@ def num_periods(cfg: ModelConfig) -> int:
     return cfg.num_layers // plen
 
 
-def check_ported(cfg: ModelConfig, spec: LayerSpec = None) -> None:
-    """Raise ``NotImplementedError`` naming the module a config or layer
-    needs that the port does not have yet."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder (encoder, cross-attention, "
-            "repro.models.lm.encoder_forward) is not ported yet")
-    for s in [spec] if spec is not None else period_spec(cfg):
-        if s.use_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers (repro.models.moe) are not ported "
-                "yet")
-
-
 # ---------------------------------------------------------------- init ----
 
-def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype):
+def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype,
+                     cross: bool = False):
     d, Hq, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     wo = torch.randn((Hq, Dh, d), generator=gen, device=gen.device)
     p = {
@@ -80,7 +68,7 @@ def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype):
         "wv": dense_init(gen, d, (Hkv, Dh), dtype),
         "wo": (wo / float(np.sqrt(Hq * Dh))).to(dtype),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.zeros((Dh,), dtype=dtype, device=gen.device)
         p["k_norm"] = torch.zeros((Dh,), dtype=dtype, device=gen.device)
     return p
@@ -99,15 +87,18 @@ def init_mlp_params(gen: torch.Generator, cfg: ModelConfig, dtype):
 
 def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
                       spec: LayerSpec, dtype):
-    check_ported(cfg, spec)
     d = cfg.d_model
     p = {"ln1": torch.zeros((d,), dtype=dtype, device=gen.device)}
     if spec.kind == "A":
         p["attn"] = init_attn_params(gen, cfg, dtype)
     else:
         p["mamba"] = mamba_lib.init_mamba_params(gen, d, cfg.ssm, dtype)
-    if spec.has_mlp:
+    if spec.use_moe or spec.has_mlp:
         p["ln2"] = torch.zeros((d,), dtype=dtype, device=gen.device)
+    if spec.use_moe:
+        p["moe"] = moe_lib.init_moe_params(gen, d, cfg.moe, dtype)
+    if spec.has_mlp or (spec.use_moe and (cfg.moe.dense_residual
+                                          or cfg.moe.shared_expert)):
         p["mlp"] = init_mlp_params(gen, cfg, dtype)
     return p
 
@@ -117,19 +108,28 @@ def init_period_params(gen: torch.Generator, cfg: ModelConfig, dtype):
             for j, spec in enumerate(period_spec(cfg))}
 
 
+def stack_trees(trees: list) -> dict:
+    """Dict trees of equal structure as one tree with a leading axis of
+    len(trees) on every leaf, stacked leaf by leaf, each input leaf freed
+    once it is in the stack (the peak is the trees and one stacked leaf
+    more).  One tree becomes views, no copy.  Consumes ``trees``."""
+    paths = [path for path, _ in tree_paths(trees[0])]
+    cols = [[x for _, x in tree_paths(t)] for t in trees]
+    trees.clear()
+    leaves = []
+    for j in range(len(paths)):
+        leaves.append(torch.stack([c[j] for c in cols]) if len(cols) > 1
+                      else cols[0][j].unsqueeze(0))
+        for c in cols:
+            c[j] = None
+    return tree_from_paths(paths, leaves)
+
+
 def init_stacked_params(gen: torch.Generator, cfg: ModelConfig, dtype):
     """Period params with a leading ``num_periods`` axis on every leaf,
-    drawn period by period into the stacked tensors (so the stack is never
-    held twice)."""
-    n = num_periods(cfg)
-    period = init_period_params(gen, cfg, dtype)
-    stack = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), period)
-    for i in range(n):
-        if i:
-            period = init_period_params(gen, cfg, dtype)
-        for (_, s), (_, x) in zip(tree_paths(stack), tree_paths(period)):
-            s[i].copy_(x)
-    return stack
+    the periods drawn one after the other (:func:`stack_trees`)."""
+    return stack_trees([init_period_params(gen, cfg, dtype)
+                        for _ in range(num_periods(cfg))])
 
 
 # --------------------------------------------------------------- apply ----
@@ -157,19 +157,28 @@ def _qk_norm(p, q, k, cfg: ModelConfig):
     return q, k
 
 
-def attn_forward(p, x, cfg: ModelConfig, *, angles, q_block=512,
-                 kv_block=512):
-    """Full-sequence causal attention (prefill), with the config's sliding
-    window.  x: (B, S, d).  Returns (y, (k, v)) with k, v (B, S, Hkv, Dh)
-    after RoPE, as the cache holds them."""
+def attn_forward(p, x, cfg: ModelConfig, *, angles, causal=True,
+                 kv_override=None, q_block=512, kv_block=512):
+    """Full-sequence attention (training, prefill, the encoder, cross-
+    attention).  x: (B, S, d); ``kv_override`` (B, S_kv, d): the keys'
+    and values' source for cross-attention (no RoPE on its keys);
+    ``angles`` None: no RoPE (the encoder-decoder's learned positions).
+    The config's sliding window applies to causal attention only.
+    Returns (y, (k, v)) with k, v (B, S_kv, Hkv, Dh) after RoPE, as the
+    cache holds them."""
     q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
+    src = x if kv_override is None else kv_override
+    k = _proj(src, p["wk"])
+    v = _proj(src, p["wv"])
     q, k = _qk_norm(p, q, k, cfg)
-    q = apply_rope(q, angles)
-    k = apply_rope(k, angles)
-    out = attn_lib.blocked_attention(q, k, v, window=cfg.sliding_window,
-                                     q_block=q_block, kv_block=kv_block)
+    if angles is not None:
+        q = apply_rope(q, angles)
+        if kv_override is None:
+            k = apply_rope(k, angles)
+    out = attn_lib.blocked_attention(
+        q, k, v, causal=causal,
+        window=cfg.sliding_window if causal else None,
+        q_block=q_block, kv_block=kv_block)
     B, S = x.shape[:2]
     y = out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
     return y, (k, v)
@@ -179,17 +188,19 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos: int, *, window=None):
     """One token per sequence.  x: (B, d); cache: {'k', 'v'} (B, S, Hkv,
     Dh); pos: the token's position, a Python int.  Writes the token's K/V
     into ``cache`` IN PLACE (slot pos % window for a rolling cache of
-    ``window`` rows, else pos) and returns y (B, d).  Attention over the
+    ``window`` rows, else pos) and returns y (B, d).  RoPE unless the
+    config is an encoder-decoder (learned positions).  Attention over the
     cache runs through ``ops.swa_decode_attention``: the kernel on a CUDA
     tensor, its plain version on a CPU one."""
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
     q, k = _qk_norm(p, q, k, cfg)
-    angle = rope_frequencies(cfg.head_dim, cfg.rope_theta,
-                             torch.full((1,), pos, device=x.device))
-    q = apply_rope(q[:, None], angle)[:, 0]
-    k = apply_rope(k[:, None], angle)[:, 0]
+    if not cfg.is_encdec:
+        angle = rope_frequencies(cfg.head_dim, cfg.rope_theta,
+                                 torch.full((1,), pos, device=x.device))
+        q = apply_rope(q[:, None], angle)[:, 0]
+        k = apply_rope(k[:, None], angle)[:, 0]
     S = cache["k"].shape[1]
     rolling = window is not None and S == window
     slot = pos % window if rolling else pos
@@ -208,14 +219,46 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos: int, *, window=None):
     return out.reshape(x.shape[0], -1) @ p["wo"].reshape(-1, cfg.d_model)
 
 
+def cross_attn_decode(p, x, cfg: ModelConfig, cross_cache):
+    """The decoder's cross-attention for one token per sequence against
+    the fixed encoder cache {'k', 'v'} (B, S_enc, Hkv, Dh): every
+    position valid, through ``ops.swa_decode_attention``."""
+    q = _proj(x, p["wq"])
+    kc, vc = cross_cache["k"], cross_cache["v"]
+    out = ops.swa_decode_attention(q, kc, vc, kc.shape[1])
+    return out.reshape(x.shape[0], -1) @ p["wo"].reshape(-1, cfg.d_model)
+
+
+def _zero_aux(device):
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"load_balance": zero, "router_z": zero}
+
+
+def _ffn(params, x, cfg: ModelConfig, spec: LayerSpec, moe_kw):
+    """The layer's second half: x + MLP or MoE (+ its dense residual or
+    shared expert) of the normed x.  Returns (x, aux), aux None without
+    an MoE."""
+    aux = None
+    if spec.use_moe:
+        h = rms_norm(x, params["ln2"], cfg.norm_eps)
+        y, aux = moe_lib.moe_forward(params["moe"], h, cfg.moe, **moe_kw)
+        if "mlp" in params:   # arctic dense residual / llama4 shared expert
+            y = y + mlp_forward(params["mlp"], h, cfg)
+        x = x + y
+    elif spec.has_mlp:
+        h = rms_norm(x, params["ln2"], cfg.norm_eps)
+        x = x + mlp_forward(params["mlp"], h, cfg)
+    return x, aux
+
+
 def layer_forward(params, x, cfg: ModelConfig, spec: LayerSpec, *, angles,
                   ssm_state=None, return_ssm_state=False, q_block=512,
                   kv_block=512):
-    """Full-sequence layer (training, prefill).  Returns (x, kv, state):
-    (k, v) of an attention layer, else None; the Mamba layer's final
-    {"h", "conv"} state with ``return_ssm_state``, else None.
+    """Full-sequence layer (training, prefill).  Returns (x, aux, kv,
+    state): aux the MoE terms {"load_balance", "router_z"} (zeros without
+    an MoE); (k, v) of an attention layer, else None; the Mamba layer's
+    final {"h", "conv"} state with ``return_ssm_state``, else None.
     ``ssm_state`` starts a Mamba layer from a carried state."""
-    check_ported(cfg, spec)
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     kv = new_state = None
     if spec.kind == "A":
@@ -228,18 +271,16 @@ def layer_forward(params, x, cfg: ModelConfig, spec: LayerSpec, *, angles,
     else:
         y = mamba_lib.ssd_forward(params["mamba"], h, cfg.ssm,
                                   init_state=ssm_state)
-    x = x + y
-    if spec.has_mlp:
-        h = rms_norm(x, params["ln2"], cfg.norm_eps)
-        x = x + mlp_forward(params["mlp"], h, cfg)
-    return x, kv, new_state
+    x, aux = _ffn(params, x + y, cfg, spec, {})
+    return x, aux or _zero_aux(x.device), kv, new_state
 
 
 def layer_decode(params, x, cfg: ModelConfig, spec: LayerSpec, cache,
                  pos: int, *, window=None):
     """Single-token layer step; writes the layer's ``cache`` in place
-    ({"k", "v"} of an attention layer, {"h", "conv"} of a Mamba one)."""
-    check_ported(cfg, spec)
+    ({"k", "v"} of an attention layer, {"h", "conv"} of a Mamba one).  An
+    MoE routes the B tokens drop-free: group_size = capacity = min(1024,
+    B)."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if spec.kind == "A":
         y = attn_decode(params["attn"], h, cfg, cache, pos, window=window)
@@ -248,8 +289,7 @@ def layer_decode(params, x, cfg: ModelConfig, spec: LayerSpec, cache,
                                              cfg.ssm)
         for k, t in new.items():
             cache[k].copy_(t)
-    x = x + y
-    if spec.has_mlp:
-        h = rms_norm(x, params["ln2"], cfg.norm_eps)
-        x = x + mlp_forward(params["mlp"], h, cfg)
-    return x
+    gs = min(1024, x.shape[0])
+    x, _ = _ffn(params, (x + y)[:, None], cfg, spec,
+                {"group_size": gs, "capacity": gs})
+    return x[:, 0]

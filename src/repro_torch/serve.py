@@ -1,18 +1,24 @@
-"""Serve a decoder-only LM to a batch of requests: prefill the prompt
-batch, then step the batched decode loop with greedy sampling (counterpart
-of ``examples/serve_lm.py`` and ``repro.launch.steps.build_prefill_step``
-/ ``build_serve_step``).  Every decode step's attention runs the
-``swa_decode_attention`` kernel on the card; a Mamba-2 layer steps its
-recurrent state in plain torch (no kernel).
+"""Serve an LM of any of the repo's architectures to a batch of
+requests: prefill the prompt batch, then step the batched decode loop
+with greedy sampling (counterpart of ``examples/serve_lm.py`` and
+``repro.launch.steps.build_prefill_step`` / ``build_serve_step``).  Every
+decode step's attention (self- and, in an encoder-decoder, cross-
+attention) runs the ``swa_decode_attention`` kernel on the card; a
+Mamba-2 layer steps its recurrent state and an MoE routes the batch
+drop-free in plain torch (no kernel).
 
     python -m repro_torch.serve --arch starcoder2-15b --batch 8 \\
         --prompt-len 512 --gen 32 --cache-len 4096        # on the card
+    python -m repro_torch.serve --arch jamba-v0.1-52b --layers 16 \\
+        --cache-len 1024                                  # on the card
     python -m repro_torch.serve --arch starcoder2-15b --reduced --device cpu
-    python -m repro_torch.serve --arch mamba2-130m --reduced --device cpu
+    python -m repro_torch.serve --arch whisper-medium --reduced --device cpu
 
 ``--reduced`` takes the config's smoke size (``configs.reduced``);
-``--layers N`` cuts depth only.  Weights are random, drawn from
-``--seed``; prompts are random token ids from the same seed.
+``--layers N`` cuts depth only, in whole periods (jamba's period is 8
+layers, llama4's 2).  Weights are random, drawn from ``--seed``; prompts
+are random token ids from the same seed, and an encoder-decoder's
+encoder frames N(0, 0.1^2) from it too.
 """
 from __future__ import annotations
 
@@ -35,19 +41,31 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def encoder_frames(cfg: ModelConfig, batch: int, seed: int, dtype,
+                   device) -> torch.Tensor:
+    """Stub encoder frames (batch, encoder_seq, d_model), N(0, 0.1^2),
+    drawn on ``device`` from ``seed`` and cast to ``dtype``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((batch, cfg.encoder_seq, cfg.d_model), generator=gen,
+                    device=device)
+    return (x * 0.1).to(dtype)
+
+
 def serve(cfg: ModelConfig, prompts, *, gen: int, cache_len: int,
-          params=None, seed: int = 0, device="cuda"):
+          params=None, seed: int = 0, enc_embed=None, device="cuda"):
     """Greedy generation of ``gen`` tokens for each row of ``prompts``
     ((B, P) token ids, array or tensor).  ``params``: the model's
-    parameters on ``device`` (random from ``seed`` when None).  A config
-    with attention and without a sliding window needs P + gen - 1 <=
-    cache_len; one with Mamba layers needs P a multiple of the chunk.
+    parameters on ``device`` (random from ``seed`` when None).  An
+    encoder-decoder encodes ``enc_embed`` (B, encoder_seq, d), by default
+    :func:`encoder_frames` of ``seed`` + 1.  A config with attention and
+    without a sliding window needs P + gen - 1 <= cache_len; one with
+    Mamba layers needs P a multiple of the chunk.
 
     Returns (tokens (B, gen) on ``device``, stats) with stats holding
-    ``prefill_s``, ``decode_step_s`` (host seconds per decode step, each
-    ending in a synchronize) and ``logits_finite`` (every step's logits
-    finite, checked on the device and read once at the end).  The argmax
-    tokens stay on the device between steps."""
+    ``prefill_s`` (the encoder included), ``decode_step_s`` (host seconds
+    per decode step, each ending in a synchronize) and ``logits_finite``
+    (every step's logits finite, checked on the device and read once at
+    the end).  The argmax tokens stay on the device between steps."""
     dev = require_device(device)
     prompts = torch.as_tensor(np.asarray(prompts), device=dev).long()
     P = prompts.shape[1]
@@ -61,9 +79,13 @@ def serve(cfg: ModelConfig, prompts, *, gen: int, cache_len: int,
     if params is None:
         params = L.init_lm_params(
             torch.Generator(device=dev).manual_seed(seed), cfg)
+    if cfg.is_encdec and enc_embed is None:
+        enc_embed = encoder_frames(cfg, prompts.shape[0], seed + 1,
+                                   params["embed"].dtype, dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = L.prefill(params, cfg, prompts, cache_len)
+    logits, cache = L.prefill(params, cfg, prompts, cache_len,
+                              enc_embed=enc_embed)
     tok = torch.argmax(logits, dim=-1)
     finite = torch.isfinite(logits).all()
     _sync(dev)

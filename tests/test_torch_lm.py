@@ -63,6 +63,10 @@ def _cfgs(arch_ov, **extra):
 SC2 = ("starcoder2-15b", {"num_heads": 6, "num_kv_heads": 2})   # GQA, W 64
 QWEN = ("qwen3-32b", {"num_heads": 4, "num_kv_heads": 2})       # qk_norm
 MAMBA = ("mamba2-130m", {})                     # SSD, chunk 8, no attention
+JAMBA = ("jamba-v0.1-52b", {})      # Mamba + attention + MoE top-2 of 4
+ARCTIC = ("arctic-480b", {})        # MoE top-2 + dense residual, 2 layers
+LLAMA4 = ("llama4-maverick-400b-a17b", {})   # dense + MoE top-1 + shared
+WHISPER = ("whisper-medium", {})    # encoder-decoder, cross-attention
 
 
 def _params(jcfg, dtype=jnp.float32, seed=0):
@@ -92,11 +96,27 @@ def test_get_config_matches_repro(arch):
     ("arctic-480b", "MoE"), ("llama4-maverick-400b-a17b", "MoE"),
     ("whisper-medium", "encoder-decoder")])
 def test_unported_layer_kinds_raise(arch, missing):
-    cfg = tconfigs.reduced(tconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError, match=missing):
-        TL.init_lm_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match=missing):
-        TL.init_cache(cfg, 1, 8, device="cpu")
+    """These configs were refused while their MoE layers / encoder-decoder
+    were not ported; now each builds, its parameter tree and cache are
+    the reference's leaf for leaf, and it holds the ``missing`` module."""
+    jcfg, tcfg = (jconfigs.reduced(jconfigs.get_config(arch)),
+                  tconfigs.reduced(tconfigs.get_config(arch)))
+    for dtype, jdtype in ((torch.float32, jnp.float32),
+                          (torch.bfloat16, jnp.bfloat16)):
+        tp = TL.init_lm_params(torch.Generator().manual_seed(0), tcfg, dtype)
+        p = jax.eval_shape(lambda: JL.init_lm_params(
+            jax.random.PRNGKey(0), jcfg, jdtype))
+        assert tree_map(lambda a: (tuple(a.shape), str(a.dtype).split(".")
+                                   [-1]), tp) == jax.tree_util.tree_map(
+            lambda a: (tuple(a.shape), str(a.dtype)), p)
+        cache = TL.init_cache(tcfg, 2, 8, dtype, device="cpu")
+        want = jax.eval_shape(lambda: JL.init_cache(jcfg, 2, 8, jdtype))
+        assert tree_map(lambda a: tuple(a.shape), cache["blocks"]) == \
+            jax.tree_util.tree_map(lambda a: tuple(a.shape), want["blocks"])
+    has = any("moe" in lp for lp in tp["blocks"].values()) \
+        if missing == "MoE" \
+        else {"enc", "cross", "pos_embed"} <= set(tp)
+    assert has
 
 
 def test_unknown_arch_raises():
@@ -241,15 +261,23 @@ def test_decode_attention_plain(window, per_row):
 # -------------------------------------------------------------- slice ---
 
 def _slice(arch_ov, dtype, S0=16, steps=8):
-    """repro's and the port's prefill, cache and decode logits."""
+    """repro's and the port's prefill, cache and decode logits (an
+    encoder-decoder on the same numpy-seeded encoder frames)."""
     jcfg, tcfg = _cfgs(arch_ov)
     p, tp = _params(jcfg, dtype)
     toks = np.random.RandomState(5).randint(0, jcfg.vocab_size,
                                             (2, S0 + steps))
+    enc = None
+    if jcfg.is_encdec:
+        enc = np.random.RandomState(6).normal(
+            size=(2, jcfg.encoder_seq, jcfg.d_model)).astype(np.float32) * .1
     jl, jc = JL.prefill(p, jcfg, jnp.asarray(toks[:, :S0]),
-                        cache_len=S0 + steps, q_block=8, kv_block=8)
+                        cache_len=S0 + steps, q_block=8, kv_block=8,
+                        enc_embed=None if enc is None else jnp.asarray(enc))
     tl, tc = TL.prefill(tp, tcfg, torch.from_numpy(toks[:, :S0]),
-                        S0 + steps, q_block=8, kv_block=8)
+                        S0 + steps, q_block=8, kv_block=8,
+                        enc_embed=None if enc is None
+                        else torch.from_numpy(enc))
     # the port's decode writes its cache in place: keep the prefill's
     out = {"prefill": (tl, jl), "steps": [],
            "caches": [(tree_map(torch.clone, tc["blocks"]),
@@ -268,10 +296,16 @@ def _slice(arch_ov, dtype, S0=16, steps=8):
                                            (QWEN, jnp.float32),
                                            (SC2, jnp.bfloat16),
                                            (MAMBA, jnp.float32),
-                                           (MAMBA, jnp.bfloat16)],
+                                           (MAMBA, jnp.bfloat16),
+                                           (JAMBA, jnp.float32),
+                                           (ARCTIC, jnp.float32),
+                                           (LLAMA4, jnp.float32),
+                                           (WHISPER, jnp.float32)],
                          ids=["starcoder2-gqa-f32", "qwen3-qknorm-f32",
                               "starcoder2-gqa-bf16", "mamba2-f32",
-                              "mamba2-bf16"])
+                              "mamba2-bf16", "jamba-hybrid-moe-f32",
+                              "arctic-moe-f32", "llama4-moe-shared-f32",
+                              "whisper-encdec-f32"])
 def test_prefill_and_decode_match_repro(arch_ov, dtype):
     out, _, _, _ = _slice(arch_ov, dtype)
     bf16 = dtype == jnp.bfloat16
@@ -290,9 +324,9 @@ def test_prefill_and_decode_match_repro(arch_ov, dtype):
 
 
 def _teacher_forced(tp, tcfg, toks):
-    x = TL.lm_backbone(tp, tcfg, TL.embed_tokens(tp, tcfg,
-                                                 torch.from_numpy(toks)),
-                       q_block=8, kv_block=8)
+    x, _ = TL.lm_backbone(tp, tcfg, TL.embed_tokens(tp, tcfg,
+                                                    torch.from_numpy(toks)),
+                          q_block=8, kv_block=8)
     return TL.unembed(tp, tcfg, x)
 
 
