@@ -3,7 +3,8 @@
 card and check it: the CE-FL rounds, the front door with the ``cefl``
 strategy, multi-seed sweeps with resume, cohorts, the scenario fuzzer,
 the LM serving path, CE-FL training of mamba2-130m and whisper-medium,
-and serving of the MoE and hybrid models.
+serving of the MoE and hybrid models, and the sharded plane on rank
+meshes.
 
     python3 chip_smoke.py            # from the repo root, on a machine with
                                      # one CUDA card, nvcc and nvidia-smi
@@ -135,6 +136,38 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              prefill and decode logits and one LM round, after checking
              that every MoE routing agrees.  Phase 4 holds each kernel
              against its plain version at every shape phase 10 launched.
+11. mesh   — (runs after 10) the sharded parameter plane on ('dpu',
+             'rows') rank meshes (``repro_torch.sharding``), spawned with
+             ``run_spmd`` after phase 1 built the kernels, so the ranks
+             only load them: mesh (1, 1) over a one-rank NCCL group, and
+             (2, 1), (1, 2), (2, 2), (4, 1) over a gloo group of 4 ranks
+             whose CUDA tensors all lie on this card (NCCL refuses two
+             ranks on one device).  (a) The three sharded ops at the paper
+             plane (R 176; G 25, which degrades the 'dpu' axis, and G 20)
+             and mamba2-130m's LM plane (R 126,080, G 4): exact mode,
+             both robust modes and fedprox_accum bitwise against the
+             single-device kernels, psum within rtol = atol = 1e-6, every
+             rank's launches counted (one launch a call; two for psum
+             where 'dpu' splits), the single-device kernels against their
+             plain versions to phase 4's bounds.  (b) The engine at paper
+             width (phase 2's world and classifier) under ``fednova``, 3
+             rounds, at mesh_shape (1, 1), (2, 2), (4, 1), against the
+             single-device card run: arrivals N(1500, 100) put every
+             UE's mini-batch in one bucket, so the 20 live DPUs form one
+             group and every round runs the sharded fused round (the
+             counter must equal the rounds); bitwise or within rtol 1e-6,
+             printed.  (c) ``MeshExecutor(mesh_shape=(2, 2))``, phase 3b's
+             fednova rounds cut to 2, allclose (atol 1e-5) to the
+             single-device mesh round.  (d) The sequence-sharded decode at
+             starcoder2-15b's attention shape (Hq 48, Hkv 4, D 128, bf16,
+             B 2, S 16,384 over the 4 ranks) against the plain version's
+             f32 result (one bf16 ulp, or 8 f32 ulps of the largest |v|)
+             and the single-device kernel; one ``lm_decode_step`` with
+             ``ctx`` on starcoder2-15b cut to 2 layers at full width
+             (f32, prompt 1536, cache 4096 rows split 4 ways), 4 steps,
+             logits within 5e-4 of the single-device kernel path.  Times
+             are recorded but are no scaling figure: the ranks share one
+             card and gloo stages through host memory.
 4. kernels — each hand-written kernel against its plain PyTorch version on
              the same card tensors, at every shape the paths launched it
              with and at extra cases, with the tolerance stated below
@@ -253,7 +286,7 @@ def smi_name_power() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
+        check=True)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -3561,6 +3594,243 @@ def drive_p10_phase(dev, timer):
     return dict(launches), shapes, swa, records
 
 
+# -------------------------------------------- phase 11: the rank mesh --
+
+# The sharded plane's ops at the paper's plane (R = 176; G = 25 DPUs, the
+# paper world's, which no 'dpu' axis of 2 or 4 divides, so that axis
+# degrades to replication, and G = 20, the UEs of a fednova round) and at
+# mamba2-130m's LM plane (R = 126,080, G = 4).
+P11_OPS = [("paper plane, G 25", 25, 176), ("paper plane, G 20", 20, 176),
+           ("mamba2-130m LM plane", 4, 126080)]
+P11_WORLD = 4                     # gloo ranks, all on the one card
+P11_MESHES = [(2, 1), (1, 2), (2, 2), (4, 1)]
+PAPER_WORLD = dict(num_ue=20, num_bs=10, num_dc=5, pool=48000,
+                   input_shape=(28, 28, 1), hidden=(200, 100),
+                   eval_examples=1000)
+# fednova offloads nothing and plans gamma 2, m 0.5 for every UE; with
+# arrivals N(1500, 100) every UE's mini-batch of round(0.5 * D) lands in
+# the 513-1024 bucket, so the 20 live DPUs form ONE group and every round
+# runs the fused (here: the sharded fused) round.
+P11_ENGINE = dict(world=PAPER_WORLD, strategy="fednova", rounds=3,
+                  mean_arrivals=1500.0, std_arrivals=100.0, eta=0.1)
+# phase 3b's fednova mesh rounds (arrivals N(2000, 200)), cut to 2
+P11_MESH_EXEC = dict(mesh=(2, 2), world=PAPER_WORLD, strategy="fednova",
+                     rounds=2, mean_arrivals=2000.0, std_arrivals=200.0,
+                     eta=0.1)
+# starcoder2-15b's attention shape, the sequence split over the 4 ranks;
+# cache_len 12,000 leaves rank 3's slice wholly masked
+P11_DECODE = dict(B=2, S=16384, Hq=48, Hkv=4, D=128, dtype="bfloat16",
+                  cache_lens=(12000, 16384), keep_outputs=True)
+P11_LM = dict(arch="starcoder2-15b", reduced_cfg=False, layers=2,
+              dtype="float32", batch=2, prompt=1536, cache_len=4096,
+              steps=4)
+ENGINE_RTOL = 1e-6
+
+
+def _p11_op_calls(meshes):
+    from repro_torch.sharding import parity as P
+    return [(P.ops_worker, dict(meshes=meshes, G=G, R=R, seed=1000 + G))
+            for _, G, R in P11_OPS]
+
+
+def _p11_expected_launches(op, shape, G, R, rank):
+    """Kernel launches of one sharded op on ``rank``: one launch, two
+    for the psum mode on a rank whose 'dpu' axis splits (the partial sum
+    and the update); ranks outside the mesh run the single-device op."""
+    import types
+
+    from repro_torch.sharding.mesh import plane_axes
+    kernel = {"nova_exact": "nova_aggregate", "nova_psum": "nova_aggregate",
+              "fedprox_accum": "fedprox_accum"}.get(op, "robust_aggregate")
+    d, r = shape
+    g_ax, _ = plane_axes(types.SimpleNamespace(shape={"dpu": d, "rows": r}),
+                         G, R)
+    split = g_ax is not None and d > 1 and rank < d * r
+    return {kernel: 2 if (op == "nova_psum" and split) else 1}
+
+
+def _p11_verdict(c) -> str:
+    return "bitwise" if c["bitwise"] else f"max err {c['max_abs_err']:.1e}"
+
+
+def p11_ops_check(reports, meshes, group):
+    """Every sharded op bitwise (psum: allclose) against the single-device
+    kernel, every rank's launches as expected, the single-device kernel
+    against its plain version.  Returns the summary rows."""
+    rows = []
+    for (label, G, R), rep in zip(P11_OPS, reports):
+        for op, c in rep["kernel_vs_plain"].items():
+            if not c["ok"]:
+                raise AssertionError(f"{label}: {op} kernel vs plain "
+                                     f"{c}")
+        for shape in meshes:
+            rec = rep["meshes"][str(tuple(shape))]
+            for op, c in rec.items():
+                ok = c["allclose"] if op == "nova_psum" else c["bitwise"]
+                want = [_p11_expected_launches(op, shape, G, R, k)
+                        for k in range(len(c["launches"]))]
+                if not ok or c["launches"] != want:
+                    raise AssertionError(
+                        f"{group} {label} mesh {shape} {op}: ok={ok}, "
+                        f"launches {c['launches']} != {want}; {c}")
+                rows.append({"group": group, "case": label, "G": G, "R": R,
+                             "mesh": list(shape), "op": op,
+                             "bitwise": c["bitwise"],
+                             "max_abs_err": c.get("max_abs_err"),
+                             "s": c["s"], "launches": c["launches"],
+                             "collectives": c["collectives"]})
+            log(f"  {group} {label} (G {G}, R {R}) mesh {tuple(shape)}: "
+                + "; ".join(f"{op} {_p11_verdict(c)} {1e3 * c['s']:.1f} ms"
+                            for op, c in rec.items()))
+    return rows
+
+
+def p11_engine_check(rep, group):
+    """Each mesh's engine run against the single-device run on the card:
+    every round through the sharded fused round, accuracy, loss and
+    params bitwise or within rtol 1e-6 (atol 1e-6), which is printed."""
+    rounds = len(rep["single"]["acc"])
+    out = {}
+    for shape, c in rep["meshes"].items():
+        if c["fused_rounds"] != rounds:
+            raise AssertionError(f"{group} engine mesh {shape}: "
+                                 f"{c['fused_rounds']} sharded rounds of "
+                                 f"{rounds}")
+        want = {"fedprox_accum": 2 * rounds, "nova_aggregate": rounds}
+        if any(lc != want for lc in c["launches"]):
+            raise AssertionError(f"{group} engine mesh {shape}: launches "
+                                 f"{c['launches']} != {want} per rank")
+        close = np.allclose(c["acc"], rep["single"]["acc"], rtol=ENGINE_RTOL,
+                            atol=ENGINE_RTOL) and np.allclose(
+            c["loss"], rep["single"]["loss"], rtol=ENGINE_RTOL,
+            atol=ENGINE_RTOL) and c["allclose"]
+        exact = c["params_bitwise"] and c["acc_equal"] and c["loss_equal"]
+        if not (exact or close):
+            raise AssertionError(f"{group} engine mesh {shape}: neither "
+                                 f"bitwise nor within rtol {ENGINE_RTOL}: "
+                                 f"{c}")
+        verdict = "bitwise" if exact else f"within rtol {ENGINE_RTOL}"
+        log(f"  {group} engine fednova mesh {shape}: {verdict} to the "
+            f"single-device card run (params max err {c['max_abs_err']:.1e}"
+            f"), {c['fused_rounds']} sharded rounds in {c['s']:.2f} s "
+            f"(single device {rep['single']['s']:.2f} s), launches per "
+            f"rank {c['launches'][0]}, collectives {c['collectives']}")
+        out[shape] = {"verdict": verdict, "s": c["s"],
+                      "single_s": rep["single"]["s"],
+                      "max_abs_err": c["max_abs_err"],
+                      "launches": c["launches"], "acc": c["acc"],
+                      "loss": c["loss"], "collectives": c["collectives"]}
+    return out
+
+
+def p11_decode_check(rep):
+    """The seq-sharded decode's bf16 output within one bf16 ulp of the
+    plain version's f32 result or 8 f32 ulps of the largest |v| (the
+    swa check's bound), as is the single-device kernel's."""
+    out = {}
+    for cl, c in rep["cases"].items():
+        want = torch.from_numpy(c["plain_f32"])
+        atol = 8 * float(np.spacing(np.float32(c["v_absmax"])))
+        res = {name: _within_bf16_of_f32(
+            torch.from_numpy(c[name]).to(torch.bfloat16), want, atol)
+            for name in ("out", "single")}
+        if not (res["out"]["ok"] and res["single"]["ok"]
+                and c["collectives"] == {"all_reduce:cache": 3}):
+            raise AssertionError(f"seq-sharded decode cache_len {cl}: "
+                                 f"{res} {c['collectives']}")
+        log(f"  (d) seq-sharded decode B {rep['B']} S {rep['S']} over "
+            f"{P11_WORLD} ranks, cache_len {cl}: vs plain f32 "
+            f"{res['out']['max_abs_err']:.2e} (tol {res['out']['tol']:.2e}),"
+            f" vs the single-device kernel {c['vs_single']:.2e}, kernel vs "
+            f"plain {res['single']['max_abs_err']:.2e}; {1e3 * c['s']:.2f} "
+            f"ms, collectives {c['collectives']}")
+        out[cl] = {"vs_plain": res["out"], "kernel_vs_plain": res["single"],
+                   "vs_single": c["vs_single"], "s": c["s"],
+                   "launches": c["launches"]}
+    return out
+
+
+def drive_mesh_phase(dev):
+    """Phase 11: the sharded plane on ``('dpu', 'rows')`` rank meshes,
+    every rank launching the hand-written kernels on its block.  A
+    one-rank NCCL group runs mesh (1, 1); a gloo group of 4 ranks, all on
+    this card (NCCL refuses two ranks on one device; gloo stages CUDA
+    tensors through host memory), runs (2, 1), (1, 2), (2, 2), (4, 1).
+    (a) the sharded ops, (b) the engine, (c) ``MeshExecutor(mesh_shape=
+    (2, 2))``, (d) the sequence-sharded decode and one ``lm_decode_step``
+    with ``ctx``.  Seconds are recorded but are no scaling figure: the
+    ranks share one card.  Returns (launches of every rank's sharded
+    calls, records)."""
+    from repro_torch.sharding import parity as P
+    from repro_torch.sharding.mesh import run_spmd
+
+    records = {}
+    t0 = time.perf_counter()
+    log("  one-rank NCCL group: mesh (1, 1)")
+    nccl = run_spmd(P.sequence_worker, 1, _p11_op_calls([(1, 1)]) + [
+        (P.engine_worker, dict(meshes=[(1, 1)], **P11_ENGINE))],
+        backend="nccl", device=dev)
+    records["nccl_s"] = time.perf_counter() - t0
+    log(f"  gloo group of {P11_WORLD} ranks on one card: meshes "
+        f"{P11_MESHES}")
+    t0 = time.perf_counter()
+    gloo = run_spmd(P.sequence_worker, P11_WORLD, _p11_op_calls(P11_MESHES)
+                    + [(P.engine_worker, dict(meshes=[(2, 2), (4, 1)],
+                                              **P11_ENGINE)),
+                       (P.mesh_executor_worker, P11_MESH_EXEC),
+                       (P.decode_worker, P11_DECODE),
+                       (P.lm_decode_worker, P11_LM)],
+                    backend="gloo", device=dev)
+    records["gloo_s"] = time.perf_counter() - t0
+    n_ops = len(P11_OPS)
+    log("  (a) the sharded ops (exact and psum eq. 11, both robust modes, "
+        "fedprox_accum)")
+    records["ops"] = p11_ops_check(nccl[:n_ops], [(1, 1)], "nccl") + \
+        p11_ops_check(gloo[:n_ops], P11_MESHES, "gloo")
+    log("  (b) the engine at paper width, fednova x3")
+    records["engine"] = {**p11_engine_check(nccl[n_ops], "nccl"),
+                         **p11_engine_check(gloo[n_ops], "gloo")}
+    mx = gloo[n_ops + 1]
+    log(f"  (c) MeshExecutor(mesh_shape=(2, 2)), fednova x2: loss "
+        f"{mx['loss']} vs {mx['ref_loss']}, params max err "
+        f"{mx['params_max_abs_err']:.1e} (atol 1e-5), {mx['mesh_steps']} "
+        f"sharded steps, launches per rank {mx['launches'][0]}")
+    want = {"fedprox_accum": 4, "nova_aggregate_stacked": 2}
+    if (mx["mesh_steps"] != 2 or mx["params_max_abs_err"] > 1e-5
+            or mx["loss_max_abs_err"] > 1e-5
+            or any(lc != want for lc in mx["launches"])):
+        raise AssertionError(f"sharded MeshExecutor: {mx}")
+    records["mesh_executor"] = mx
+    records["decode"] = p11_decode_check(gloo[n_ops + 2])
+    lm = gloo[n_ops + 3]
+    log(f"  (d) lm_decode_step with ctx: {lm['arch']} x{lm['layers']} "
+        f"layers (d_model {lm['d_model']}, f32), B {lm['batch']}, prompt "
+        f"{lm['prompt']}, cache rows {lm['cache_rows']} over {lm['shards']}"
+        f" ranks, {lm['steps']} steps: logits max err "
+        f"{lm['logits_max_abs_err']:.2e} vs the single-device kernel path "
+        f"(tol {lm['logits_atol']:g}), tokens agree "
+        f"{lm['tokens_agree_where_clear']}")
+    if not (lm["ok"] and lm["finite"]):
+        raise AssertionError(f"lm_decode_step with ctx: {lm}")
+    records["lm_decode"] = lm
+    log(f"  seconds: NCCL group {records['nccl_s']:.1f}, gloo group "
+        f"{records['gloo_s']:.1f} (spawn included; ranks share one card "
+        "and gloo stages through host memory: no scaling figure)")
+    launches = Counter()
+    for rep in nccl[:n_ops] + gloo[:n_ops]:
+        for rec in rep["meshes"].values():
+            for c in rec.values():
+                for lc in c["launches"]:
+                    launches.update(lc)
+    for rep in (nccl[n_ops], gloo[n_ops]):
+        for c in rep["meshes"].values():
+            for lc in c["launches"]:
+                launches.update(lc)
+    for lc in mx["launches"]:
+        launches.update(lc)
+    return dict(launches), records
+
+
 # ---------------------------------------------------------------- main --
 
 def main() -> int:
@@ -3666,6 +3936,14 @@ def main() -> int:
     x_launches, x_shapes, x_swa, x_records = drive_p10_phase(dev, timer)
     del timer
 
+    log("phase 11: the sharded plane on ('dpu', 'rows') rank meshes: a "
+        "one-rank NCCL group (1, 1) and a gloo group of 4 ranks on this "
+        "card (2, 1), (1, 2), (2, 2), (4, 1): the sharded ops at the paper "
+        "and LM planes, the engine (fednova), MeshExecutor(mesh_shape), "
+        "the sequence-sharded decode")
+    torch.cuda.empty_cache()
+    h_launches, h_records = drive_mesh_phase(dev)
+
     log(f"phase 4: kernels vs plain versions at the paths' shapes and extra "
         f"cases ({smi})")
     timer = Timer(dev)
@@ -3718,7 +3996,8 @@ def main() -> int:
             "replaces": REPLACES[name][1],
             "launches": sum(c.get(name, 0) for c in (
                 launches, t_launches, m_launches, a_launches, s_launches,
-                c_launches, p_launches, l_launches, x_launches)),
+                c_launches, p_launches, l_launches, x_launches,
+                h_launches)),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3763,6 +4042,7 @@ def main() -> int:
             for k, c in x_shapes.shapes.items()},
         "phase10_swa_cases": [list(c) for c in x_swa.cases()],
         "phase10_kernel_rows": x_rows,
+        "phase11": h_records, "phase11_launches": h_launches,
         "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     full, check = l_records["lm_mamba2_130m"], l_records["check"]
     log(f"phase 9 summary: lm_mamba2_130m loss {full['losses'][0]:.4f} -> "
@@ -3787,6 +4067,19 @@ def main() -> int:
         f"{100 * wt['round_profile']['busy_share']:.1f} %, serve decode "
         f"{x_records['whisper_serve']['runs'][0]['decode_ms_median']:.2f} "
         f"ms/step; flash dq err {fl['errors']['dq']['max_abs_err']:.2e}")
+    eng = h_records["engine"]
+    log("phase 11 summary: ops bitwise at every mesh (psum within rtol "
+        "1e-6); engine " + "; ".join(
+            f"{k} {v['verdict']} ({v['s']:.2f} s vs {v['single_s']:.2f})"
+            for k, v in eng.items())
+        + f"; MeshExecutor (2, 2) params err "
+        f"{h_records['mesh_executor']['params_max_abs_err']:.1e}; "
+        f"seq-sharded decode vs plain "
+        + ", ".join(f"{v['vs_plain']['max_abs_err']:.2e}"
+                    for v in h_records["decode"].values())
+        + f"; lm_decode_step logits err "
+        f"{h_records['lm_decode']['logits_max_abs_err']:.2e}; launches "
+        f"{h_launches}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -21,6 +21,8 @@ from typing import (Any, Callable, Dict, List, Optional, Protocol, Sequence,
 import numpy as np
 import torch
 
+from repro_torch.sharding.mesh import mesh_dims
+
 # Decision-variable keys, in the canonical order of the decision dict `w`
 # (repro_torch.network.costs docstring).
 PLAN_KEYS: Tuple[str, ...] = (
@@ -64,12 +66,25 @@ class EngineOptions:
     trim_frac: float = 0.1          # trim fraction per side for
                                     # robust_agg="trimmed_mean" (k =
                                     # min(floor(n*frac), (n-1)//2))
+    mesh_shape: Optional[Tuple[int, int]] = None
+                                    # (dpu, rows) rank-mesh split for the
+                                    # sharded parameter plane
+                                    # (repro_torch.sharding.plane): data-
+                                    # parallel over the DPU stack x FSDP
+                                    # rows, over the first dpu*rows ranks
+                                    # of the initialised default group.
+                                    # None -> single-device execution
     cohort_size: Optional[int] = None
                                     # per-round client sampling: K UEs drawn
                                     # uniformly without replacement each
                                     # round; the others sit out (no data, no
                                     # solver rows, no cost).  None/K >= N ->
                                     # full participation
+
+    def __post_init__(self):
+        if self.mesh_shape is not None:
+            # raises without a process group or past the world's size
+            self.mesh_shape = mesh_dims(self.mesh_shape)
 
 
 @dataclasses.dataclass(frozen=True)

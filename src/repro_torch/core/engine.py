@@ -60,6 +60,8 @@ from repro_torch.network.costs import network_costs, round_delay, \
     round_energy
 from repro_torch.network.topology import subnetwork
 from repro_torch.scenario.base import get_scenario
+from repro_torch.sharding import plane as shard_plane
+from repro_torch.sharding.mesh import plane_mesh
 
 
 # ------------------------------------------------------- offloading -----
@@ -277,7 +279,16 @@ class SimExecutor:
     corruption (``corrupt``) and robust aggregation (``robust_agg`` !=
     "none", one ``robust_aggregate`` launch) act between training and
     aggregation, so such rounds never fuse (:func:`fuses`).
+
+    With ``mesh_shape`` = (dpu, rows), the fused round runs sharded over
+    that rank mesh (``sharding.plane.local_round_plane_sharded``): the DPU
+    group data-parallel over 'dpu', the plane rows over 'rows'.  Every
+    rank runs the engine loop from the same seed (torchrun style), so the
+    ranks stage the same round; rounds that cannot fuse run the
+    single-device paths on every rank, redundantly.
     """
+    mesh_shape: Optional[tuple] = None   # (dpu, rows) rank split
+
     def run_round(self, params, plan: RoundPlan, datasets, *, loss_fn,
                   eta: float, mu: float, theta: Optional[float], agg: str,
                   generator: torch.Generator, eval_fn=None, corrupt=(),
@@ -292,10 +303,18 @@ class SimExecutor:
         if fuses(groups, agg, corrupt, robust_agg):
             (gamma, m, _bucket), idxs = next(iter(groups.items()))
             Ds = [len(live[j][1]["y"]) for j in idxs]
-            new_params, losses, acc = fedprox.local_round_plane(
-                params, loss_fn, [live[j][1] for j in idxs],
-                gamma=gamma, m_frac=m, eta=eta, mu=mu, generator=generator,
-                theta=fused_theta(agg, theta, gamma), eval_fn=eval_fn)
+            kw = dict(gamma=gamma, m_frac=m, eta=eta, mu=mu,
+                      generator=generator,
+                      theta=fused_theta(agg, theta, gamma), eval_fn=eval_fn)
+            group = [live[j][1] for j in idxs]
+            if self.mesh_shape is None:
+                new_params, losses, acc = fedprox.local_round_plane(
+                    params, loss_fn, group, **kw)
+            else:
+                new_params, losses, acc = \
+                    shard_plane.local_round_plane_sharded(
+                        params, loss_fn, group,
+                        mesh=plane_mesh(self.mesh_shape), **kw)
             return new_params, weighted_mean(list(losses), Ds), acc
         results = [None] * len(live)
         for (gamma, m, _bucket), idxs in groups.items():
@@ -382,8 +401,15 @@ class MeshExecutor:
     theta is applied outside the step (``x + theta * (new - x)``), so a
     per-round tau_eff needs no new step.  ``use_plane`` (default) runs the
     plane form; False runs the tree form (plain torch, no kernel).
+
+    With ``mesh_shape`` = (dpu, rows), the plane form runs sharded over
+    that rank mesh (``sharding.plane.build_sharded_round_step``): each
+    rank holds its (dpu, rows) block of the replica stack.  Allclose to
+    the single-device step, the reference's contract.  The tree form
+    ignores it.
     """
     use_plane: bool = True
+    mesh_shape: Optional[tuple] = None   # (dpu, rows) rank split
     _cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def build_step(self, micro_loss_fn, hyper: CEFLHyper):
@@ -398,8 +424,13 @@ class MeshExecutor:
     def _get_step(self, loss_fn, n_dpu, bucket, gamma_max, mu, eta):
         key = (loss_fn, n_dpu, bucket, gamma_max, mu, eta)
         if key not in self._cache:
-            self._cache[key] = build_cefl_round_step(loss_fn, CEFLHyper(
-                eta=eta, mu=mu, theta=1.0, gamma_max=gamma_max, n_micro=1))
+            hyper = CEFLHyper(eta=eta, mu=mu, theta=1.0,
+                              gamma_max=gamma_max, n_micro=1)
+            if self.use_plane and self.mesh_shape is not None:
+                self._cache[key] = shard_plane.build_sharded_round_step(
+                    loss_fn, hyper, plane_mesh(self.mesh_shape))
+            else:
+                self._cache[key] = build_cefl_round_step(loss_fn, hyper)
         return self._cache[key]
 
     def stage(self, plan: RoundPlan, datasets, *, agg: str,
@@ -671,7 +702,8 @@ class Engine:
         """``scenario``: a name from the scenario registry ("static",
         "byzantine:0.2", ...) or a Scenario instance; None takes
         ``opts.scenario``.  ``executor``: :class:`SimExecutor` (the
-        default) or :class:`MeshExecutor`.  ``callbacks`` get each
+        default, sharded over ``opts.mesh_shape`` when it is set) or
+        :class:`MeshExecutor`.  ``callbacks`` get each
         round's report; one returning True stops the run after that
         round.  ``validate_plans``: check every decided plan's
         feasibility (``RoundPlan.validate``)."""
@@ -682,7 +714,8 @@ class Engine:
             strategy if strategy is not None else self.opts.strategy)
         self.scenario = get_scenario(
             scenario if scenario is not None else self.opts.scenario)
-        self.executor = executor if executor is not None else SimExecutor()
+        self.executor = executor if executor is not None else \
+            SimExecutor(mesh_shape=self.opts.mesh_shape)
         self.callbacks: List[RoundCallback] = list(callbacks)
         self.validate_plans = validate_plans
         self.consts = consts

@@ -102,12 +102,17 @@ def _num_examples(d) -> int:
 
 # ------------------------------------------------- plane hot path -----
 
-def _plane_train_core(loss_fn: Callable, spec):
+def _plane_train_core(loss_fn: Callable, spec, rows=None):
     """The full gamma-step local-training loop of a DPU group on
     parameter planes.  The dict view ``loss_fn`` needs is a set of slices
     of the plane, so autograd hands back the gradient as a plane; the
     per-step mini-batch gather happens on the device from one stacked
-    ``(G, Db, ...)`` data tree and ``(gamma, G, bucket)`` index arrays."""
+    ``(G, Db, ...)`` data tree and ``(gamma, G, bucket)`` index arrays.
+
+    ``rows`` (the sharded round's, ``repro_torch.sharding.plane``): the
+    stack is a block of plane rows; ``rows.full`` gathers it to the whole
+    plane for the loss and ``rows.own`` cuts the gradient back to the
+    block."""
 
     def run(p_stack, anchor, data_stack, idx, weights, a, eta, mu):
         """p_stack: (G, R, LANE), contiguous; anchor: (R, LANE) shared;
@@ -117,19 +122,22 @@ def _plane_train_core(loss_fn: Callable, spec):
         G = p_stack.shape[0]
         dev = p_stack.device
         ones = torch.ones((G,), dtype=torch.float32, device=dev)
-        rows = torch.arange(G, device=dev)[:, None]
+        dpus = torch.arange(G, device=dev)[:, None]
         a = torch.as_tensor(a, dtype=torch.float32, device=dev)
         p = p_stack
         acc = torch.zeros_like(p_stack)
         losses = []
         for k in range(idx.shape[0]):
-            batch_k = {name: xd[rows, idx[k]]
+            batch_k = {name: xd[dpus, idx[k]]
                        for name, xd in data_stack.items()}
-            leaf = p.detach().requires_grad_(True)
+            full = p if rows is None else rows.full(p)
+            leaf = full.detach().requires_grad_(True)
             with torch.enable_grad():
                 loss_k = loss_fn(spec.unflatten_batched(leaf), batch_k,
                                  weights[k])
                 (g,) = torch.autograd.grad(loss_k.sum(), leaf)
+            if rows is not None:
+                g = rows.own(g)
             p, acc = ops.fedprox_accum_plane(
                 p, g.contiguous(), anchor, acc, a[k] * ones, ones, eta, mu)
             losses.append(loss_k.detach())

@@ -19,14 +19,23 @@
 ``NAME`` is a preset (``list`` shows them) or a path to a spec JSON
 (written by ``show`` / ``--dump``).  ``--set`` takes dotted spec paths.
 ``run`` runs every seed as a sweep (``--executor vmap`` by default, or
-``sequential``); a single seed with ``--executor sequential`` and no
-checkpoint flag runs through the engine with per-round lines.
+``sequential``); a single seed with ``--executor sequential`` or an
+``engine.mesh_shape``, and no checkpoint flag, runs through the engine
+with per-round lines.
 ``--checkpoint DIR`` keeps full-state snapshots (every
 ``--checkpoint-every`` rounds, and at ``--stop-after N``); ``--resume``
 continues from the snapshot and appends to the ``--trace`` file.
 An LM spec (``lm_smoke``, ``lm_mamba2_130m``) runs its one seed through
 ``experiments.lm.run_lm``.  ``--device`` is ``cuda`` unless given, and a
 CUDA run without a card raises.
+
+The sharded round runs under torchrun, every rank the same loop and rank
+0 alone printing and writing the trace; ``--backend`` names the
+torch.distributed backend (gloo for ranks that share a card, nccl for a
+card per rank)::
+
+    torchrun --nproc-per-node 4 -m repro_torch.experiments run quickstart \
+        --set mesh_shape=2,2 --backend gloo
 """
 from __future__ import annotations
 
@@ -34,6 +43,9 @@ import argparse
 import json
 import os
 import sys
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.device import require_device
 from repro_torch.experiments import (TraceSink, available_experiments,
@@ -50,13 +62,17 @@ def _load_spec(name: str):
     return get_experiment(name)
 
 
+# --set keys that name a nested spec field by its last part
+_SHORT_KEYS = {"mesh_shape": "engine.mesh_shape"}
+
+
 def _apply_overrides(spec, args):
     updates = {}
     for kv in args.set or []:
         k, _, v = kv.partition("=")
         if not _:
             raise SystemExit(f"--set needs key=value, got {kv!r}")
-        updates[k] = v
+        updates[_SHORT_KEYS.get(k, k)] = v
     if args.seeds:
         updates["seeds"] = tuple(
             int(s) for s in args.seeds.replace(",", " ").split())
@@ -84,9 +100,39 @@ def _cmd_show(args):
     return 0
 
 
+def _join_group(args) -> bool:
+    """Under torchrun (``WORLD_SIZE`` set) join the default group with
+    ``--backend`` and put this rank on card LOCAL_RANK mod the card count
+    for a CUDA ``--device``.  Returns whether this call started the
+    group (and must destroy it)."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return False
+    if args.backend is None:
+        raise SystemExit("a torchrun launch needs --backend gloo (ranks "
+                         "sharing a card, or the CPU) or --backend nccl "
+                         "(one card per rank)")
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                              % torch.cuda.device_count())
+    dist.init_process_group(args.backend, init_method="env://")
+    return True
+
+
 def _cmd_run(args):
+    started = _join_group(args)
+    try:
+        return _run(args, lead=not dist.is_initialized()
+                    or dist.get_rank() == 0)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args, lead: bool):
+    """``run``; only the ``lead`` rank (rank 0, or the only process)
+    prints, dumps and writes the trace: every rank runs the same loop."""
     spec = _apply_overrides(_load_spec(args.name), args)
-    if args.dump:
+    if args.dump and lead:
         with open(args.dump, "w") as f:
             f.write(to_json(spec))
     if (args.checkpoint_every or args.stop_after or args.resume) \
@@ -100,19 +146,23 @@ def _cmd_run(args):
             "sweeps; for lm specs use repro_torch.experiments.lm.run_lm("
             "spec, checkpoint=...) directly")
     # append on resume: the pre-kill rounds are already in the file
-    trace = TraceSink(args.trace, append=args.resume) if args.trace \
-        else None
+    trace = TraceSink(args.trace, append=args.resume) \
+        if args.trace and lead else None
+    out = print if lead else (lambda *a, **k: None)
+    # a sharded spec of one seed runs through the engine, whose executor
+    # shards the fused round
+    engine_run = len(spec.run_seeds) == 1 and not args.checkpoint and (
+        args.executor == "sequential" or spec.engine.mesh_shape is not None)
     try:
         if spec.model.kind == "lm":
             res = run_one(spec, device=args.device, trace=trace)
-            print(f"final loss {res.final.loss:.4f}")
+            out(f"final loss {res.final.loss:.4f}")
             return 0
-        if len(spec.run_seeds) == 1 and not (args.checkpoint
-                                             or args.executor == "vmap"):
-            _print_header()
+        if engine_run:
+            out(_HEADER)
             res = run_one(spec, device=args.device, trace=trace,
-                          callbacks=(_print_round,))
-            _print_final(spec.name, spec.run_seeds[0], res)
+                          callbacks=(lambda r: out(_round_line(r)),))
+            out(_final_line(spec.name, spec.run_seeds[0], res))
             return 0
         result = sweep(spec, executor=args.executor, device=args.device,
                        trace=trace, checkpoint_dir=args.checkpoint,
@@ -122,26 +172,26 @@ def _cmd_run(args):
         if trace:
             trace.close()
     for key, res in result.runs:
-        _print_final(key.experiment, key.seed, res)
-    print("\naggregate stats:")
-    print(json.dumps(result.stats(), indent=1))
+        out(_final_line(key.experiment, key.seed, res))
+    out("\naggregate stats:")
+    out(json.dumps(result.stats(), indent=1))
     return 0
 
 
-def _print_header():
-    print("round  acc    loss   aggregator  energy(J)  delay(s)")
+_HEADER = "round  acc    loss   aggregator  energy(J)  delay(s)"
 
 
-def _print_round(r):
-    print(f"{r.round:5d}  {r.acc:.3f}  {r.loss:6.3f}  DC{r.aggregator:<9d}"
-          f" {r.energy:9.2f} {r.delay:9.2f}")
+def _round_line(r) -> str:
+    return (f"{r.round:5d}  {r.acc:.3f}  {r.loss:6.3f}  "
+            f"DC{r.aggregator:<9d} {r.energy:9.2f} {r.delay:9.2f}")
 
 
-def _print_final(name, seed, res):
+def _final_line(name, seed, res) -> str:
     f = res.final
-    print(f"[{name} seed={seed}] rounds={len(res)} acc={f.acc:.3f} "
-          f"loss={f.loss:.3f} E={f.cum_energy:.1f}J "
-          f"delay={f.cum_delay:.1f}s aggregators={res.series('aggregator')}")
+    return (f"[{name} seed={seed}] rounds={len(res)} acc={f.acc:.3f} "
+            f"loss={f.loss:.3f} E={f.cum_energy:.1f}J "
+            f"delay={f.cum_delay:.1f}s "
+            f"aggregators={res.series('aggregator')}")
 
 
 def _cmd_validate(args):
@@ -185,6 +235,11 @@ def main(argv=None):
             p.add_argument("--resume", action="store_true")
             p.add_argument("--stop-after", type=int, default=None,
                            help="stop (with snapshot) after N rounds")
+            p.add_argument("--backend", choices=("gloo", "nccl"),
+                           help="torch.distributed backend of a torchrun "
+                                "launch: gloo when ranks share a card (or "
+                                "run on the CPU), nccl when each rank owns "
+                                "one")
     args = ap.parse_args(argv)
     if args.cmd == "list":
         return _cmd_list(args)

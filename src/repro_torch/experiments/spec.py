@@ -20,10 +20,11 @@ string-registry pattern as strategies and scenarios::
     assert from_json(to_json(spec)) == spec
 
 The port's specs carry the fields the port runs: the classifier and LM
-models, and the engine fields of the port's ``EngineOptions`` (the
-sharded plane, ``mesh_shape``, is ROADMAP queue 1 item 5;
-``kernel_backend`` and ``sanitize`` have no port: kernels dispatch by
-device).
+models, and the engine fields of the port's ``EngineOptions``
+(``kernel_backend`` and ``sanitize`` have no port: kernels dispatch by
+device).  ``engine.mesh_shape`` shards the fused round over a
+``(dpu, rows)`` rank mesh of the initialised default group (``torchrun
+... run NAME --set mesh_shape=2,2``).
 """
 from __future__ import annotations
 
@@ -122,9 +123,19 @@ class EngineSpec:
     robust_agg: str = "none"        # byzantine counter: "none" /
                                     # "trimmed_mean" / "median"
     trim_frac: float = 0.1
+    mesh_shape: Optional[Tuple[int, int]] = None
+                                    # ('dpu', 'rows') rank-mesh split for
+                                    # the sharded plane round; None ->
+                                    # single-device
     cohort_size: Optional[int] = None
                                     # per-round client sampling (K UEs drawn
                                     # per round); None -> full participation
+
+    def __post_init__(self):
+        # JSON and the CLI give a list or "2,2": store the tuple
+        if self.mesh_shape is not None:
+            object.__setattr__(self, "mesh_shape",
+                               _int_pair(self.mesh_shape))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,7 +169,8 @@ class ExperimentSpec:
             gamma_default=e.gamma_default, m_default=e.m_default,
             rate_jitter=e.rate_jitter, seed=int(seed),
             eval_every=e.eval_every, robust_agg=e.robust_agg,
-            trim_frac=e.trim_frac, cohort_size=e.cohort_size)
+            trim_frac=e.trim_frac, mesh_shape=e.mesh_shape,
+            cohort_size=e.cohort_size)
 
     @property
     def run_seeds(self) -> Tuple[int, ...]:
@@ -188,6 +200,14 @@ class ExperimentSpec:
         return _from_dict(cls, d)
 
 
+def _int_pair(value) -> Tuple[int, int]:
+    """A mesh shape from a tuple, a list or a "d,r" string."""
+    if isinstance(value, str):
+        value = value.replace(",", " ").split()
+    d, r = (int(v) for v in value)
+    return d, r
+
+
 def _replace_path(obj, parts: List[str], value):
     field_types = {f.name: f for f in dataclasses.fields(obj)}
     head = parts[0]
@@ -195,15 +215,20 @@ def _replace_path(obj, parts: List[str], value):
         raise KeyError(f"{type(obj).__name__} has no field {head!r} "
                        f"(available: {sorted(field_types)})")
     if len(parts) == 1:
-        value = _coerce_value(getattr(obj, head), value)
+        value = _coerce_value(getattr(obj, head), value,
+                              field_types[head].type)
         return dataclasses.replace(obj, **{head: value})
     return dataclasses.replace(
         obj, **{head: _replace_path(getattr(obj, head), parts[1:], value)})
 
 
-def _coerce_value(current, value):
+def _coerce_value(current, value, annotation=""):
     """Match the current field's shape: tuples stay tuples, and numeric
-    strings (CLI ``--set``) coerce to the current type."""
+    strings (CLI ``--set``) coerce to the current type; a string for an
+    unset tuple field (``mesh_shape=2,2``) gives a tuple of ints."""
+    if current is None and isinstance(value, str) \
+            and "Tuple" in str(annotation):
+        return tuple(int(v) for v in value.replace(",", " ").split())
     if isinstance(current, tuple) and not isinstance(value, tuple):
         if isinstance(value, str):
             value = [v for v in value.replace(",", " ").split() if v]

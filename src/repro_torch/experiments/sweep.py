@@ -156,7 +156,7 @@ class _LockstepSweep:
     def _init_runs(self, ctx: ExperimentContext) -> List[_Run]:
         runs = []
         for seed in ctx.spec.run_seeds:
-            engine = ctx.make_engine(seed, executor=SimExecutor())
+            engine = ctx.make_engine(seed)
             ues = ctx.make_ues(seed)
             state = engine.init_loop(ues, init_params=ctx.p0,
                                      loss_fn=ctx.loss_fn,

@@ -5,7 +5,8 @@ the plain single-token decode.  The decode step of the serving path runs
 the ``swa_decode_attention`` kernel instead (``kernels/ops.py``).
 
 All softmax statistics are kept in float32 whatever the activation dtype.
-The sequence-sharded decode is not ported yet.
+The sequence-sharded decode (``decode_attention_seq_sharded``) combines
+the partial softmaxes of the ranks that hold the slices of a cache.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.models.common import matmul_f32
+from repro_torch.models.common import ShardCtx, matmul_f32
+from repro_torch.sharding.mesh import all_reduce
 
 NEG_INF = -1e30
 
@@ -227,4 +229,41 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len, *,
     lsum = torch.sum(p, dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bskd->bkgd", p / torch.clamp(lsum, min=1e-30),
                        v_cache.float())
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def decode_attention_seq_sharded(q, k_cache, v_cache, cache_len, *,
+                                 ctx: ShardCtx,
+                                 window: Optional[int] = None):
+    """Single-token decode over a cache whose sequence axis is split over
+    ``ctx.mesh``: this rank holds positions ``[k * s, (k + 1) * s)`` of
+    each (B, S, Hkv, D) cache as its (B, s, Hkv, D) ``k_cache`` /
+    ``v_cache``, k = ``ctx.shard``.  Each rank computes the safe-softmax
+    partial (m, l, o) over its slice at its global offset; ``all_reduce``
+    MAX combines m, then SUM combines l and o.  q (B, Hq, D) and
+    ``cache_len`` (an int or a (B,) tensor) are the same on every rank,
+    and so is the returned (B, Hq, D).
+
+    Plain torch in float32, as the reference computes it (``jnp`` inside
+    ``shard_map``, no Pallas kernel); the single-device decode keeps the
+    ``swa_decode_attention`` kernel."""
+    B, s_loc, Hkv, D = k_cache.shape
+    Hq = q.shape[1]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * _scale(D)
+    pos = ctx.shard * s_loc + torch.arange(s_loc, device=q.device)
+    clen = torch.as_tensor(cache_len, device=q.device)
+    clen = clen[:, None] if clen.dim() == 1 else clen[None]
+    valid = pos[None, :] < clen
+    if window is not None:
+        valid &= pos[None, :] >= clen - window
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = all_reduce(torch.amax(s, dim=-1), ctx.mesh, op="max", axis="cache")
+    p = torch.exp(s - m[..., None])
+    lsum = all_reduce(torch.sum(p, dim=-1), ctx.mesh, op="sum",
+                      axis="cache")
+    o = all_reduce(torch.einsum("bkgs,bskd->bkgd", p, v_cache.float()),
+                   ctx.mesh, op="sum", axis="cache")
+    out = o / torch.clamp(lsum[..., None], min=1e-30)
     return out.reshape(B, Hq, D).to(q.dtype)

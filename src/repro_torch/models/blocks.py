@@ -24,7 +24,8 @@ from repro_torch.kernels.plane import tree_from_paths, tree_paths
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.common import (apply_rope, dense_init, rms_norm,
+from repro_torch.models.common import (NO_SHARD, ShardCtx, apply_rope,
+                                       dense_init, rms_norm,
                                        rope_frequencies)
 
 
@@ -184,14 +185,20 @@ def attn_forward(p, x, cfg: ModelConfig, *, angles, causal=True,
     return y, (k, v)
 
 
-def attn_decode(p, x, cfg: ModelConfig, cache, pos: int, *, window=None):
+def attn_decode(p, x, cfg: ModelConfig, cache, pos: int, *, window=None,
+                ctx: ShardCtx = NO_SHARD):
     """One token per sequence.  x: (B, d); cache: {'k', 'v'} (B, S, Hkv,
     Dh); pos: the token's position, a Python int.  Writes the token's K/V
     into ``cache`` IN PLACE (slot pos % window for a rolling cache of
     ``window`` rows, else pos) and returns y (B, d).  RoPE unless the
     config is an encoder-decoder (learned positions).  Attention over the
     cache runs through ``ops.swa_decode_attention``: the kernel on a CUDA
-    tensor, its plain version on a CPU one."""
+    tensor, its plain version on a CPU one.
+
+    With ``ctx.seq_shard_decode`` on a mesh, ``cache`` is this rank's
+    slice of the sequence axis (``lm.shard_cache``): S counts every
+    slice, the slot's owner writes it, and the attention runs
+    ``attention.decode_attention_seq_sharded``."""
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
@@ -201,13 +208,17 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos: int, *, window=None):
                                  torch.full((1,), pos, device=x.device))
         q = apply_rope(q[:, None], angle)[:, 0]
         k = apply_rope(k[:, None], angle)[:, 0]
-    S = cache["k"].shape[1]
+    sharded = ctx.seq_shard_decode and ctx.on_mesh
+    s_loc = cache["k"].shape[1]
+    offset = ctx.shard * s_loc if sharded else 0
+    S = s_loc * ctx.shards if sharded else s_loc
     rolling = window is not None and S == window
     slot = pos % window if rolling else pos
     if slot >= S:
         raise ValueError(f"position {pos} does not fit a {S}-row cache")
-    cache["k"][:, slot] = k.to(cache["k"].dtype)
-    cache["v"][:, slot] = v.to(cache["v"].dtype)
+    if offset <= slot < offset + s_loc:
+        cache["k"][:, slot - offset] = k.to(cache["k"].dtype)
+        cache["v"][:, slot - offset] = v.to(cache["v"].dtype)
     cache_len = min(pos + 1, S)
     # the JAX package masks positions < cache_len - window; a cache of at
     # most `window` rows (all that init_cache and prefill make) never cuts
@@ -215,7 +226,11 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos: int, *, window=None):
         raise ValueError(f"a {S}-row cache wider than the {window}-row "
                          "window is not supported (init_cache makes at "
                          "most `window` rows)")
-    out = ops.swa_decode_attention(q, cache["k"], cache["v"], cache_len)
+    if sharded:
+        out = attn_lib.decode_attention_seq_sharded(
+            q, cache["k"], cache["v"], cache_len, ctx=ctx)
+    else:
+        out = ops.swa_decode_attention(q, cache["k"], cache["v"], cache_len)
     return out.reshape(x.shape[0], -1) @ p["wo"].reshape(-1, cfg.d_model)
 
 
@@ -276,14 +291,15 @@ def layer_forward(params, x, cfg: ModelConfig, spec: LayerSpec, *, angles,
 
 
 def layer_decode(params, x, cfg: ModelConfig, spec: LayerSpec, cache,
-                 pos: int, *, window=None):
+                 pos: int, *, window=None, ctx: ShardCtx = NO_SHARD):
     """Single-token layer step; writes the layer's ``cache`` in place
     ({"k", "v"} of an attention layer, {"h", "conv"} of a Mamba one).  An
     MoE routes the B tokens drop-free: group_size = capacity = min(1024,
-    B)."""
+    B).  ``ctx``: :func:`attn_decode`'s."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if spec.kind == "A":
-        y = attn_decode(params["attn"], h, cfg, cache, pos, window=window)
+        y = attn_decode(params["attn"], h, cfg, cache, pos, window=window,
+                        ctx=ctx)
     else:
         y, new = mamba_lib.mamba_decode_step(params["mamba"], h, cache,
                                              cfg.ssm)

@@ -1,11 +1,47 @@
 """Shared NN building blocks of the model track (counterpart of
 ``repro.models.common``): explicit parameter dicts, weights drawn from an
-explicit ``torch.Generator``.  ``ShardCtx`` and ``layer_norm`` come with
-the sharded and encoder-decoder paths."""
+explicit ``torch.Generator``, and the :class:`ShardCtx` of the
+sequence-sharded decode."""
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """How the model expresses distribution.
+
+    ``mesh``: the ``torch.distributed`` process group over the cache axes
+    (None: single-device paths everywhere).  With ``seq_shard_decode``
+    each member holds its contiguous slice of every attention cache's
+    sequence axis, member k the k-th, and the decode attention combines
+    the members' partial softmaxes
+    (``attention.decode_attention_seq_sharded``).  The reference's batch
+    and tensor-parallel axes belong to its TPU-pod layout rules, which
+    are not ported (ROADMAP queue 1 item 6.4)."""
+    mesh: Optional[object] = None          # a torch.distributed group
+    seq_shard_decode: bool = False
+
+    @property
+    def on_mesh(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def shards(self) -> int:
+        return dist.get_world_size(self.mesh)
+
+    @property
+    def shard(self) -> int:
+        """This rank's position in the group: its slice of the caches."""
+        return dist.get_rank(self.mesh)
+
+
+NO_SHARD = ShardCtx()
 
 
 def dense_init(gen: torch.Generator, in_dim, out_shape, dtype, scale=None):

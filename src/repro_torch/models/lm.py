@@ -35,7 +35,8 @@ from repro_torch.device import require_device
 from repro_torch.kernels.plane import tree_map, tree_unbind
 from repro_torch.models import blocks as B
 from repro_torch.models import mamba as mamba_lib
-from repro_torch.models.common import (embed_init, matmul_f32, rms_norm,
+from repro_torch.models.common import (NO_SHARD, ShardCtx, embed_init,
+                                       matmul_f32, rms_norm,
                                        rope_frequencies)
 
 
@@ -351,17 +352,20 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     return {"blocks": blocks, "pos": 0}
 
 
-def lm_decode_step(params, cfg: ModelConfig, tokens, cache):
+def lm_decode_step(params, cfg: ModelConfig, tokens, cache, *,
+                   ctx: ShardCtx = NO_SHARD):
     """tokens: (B,) integer, one new token per sequence, on the params'
     device.  Returns (logits (B, V) f32, cache) where the returned cache
     holds the SAME tensors as ``cache``, written in place, and ``pos`` + 1:
-    the cache passed in is consumed."""
+    the cache passed in is consumed.  With ``ctx.seq_shard_decode`` on a
+    mesh, ``cache`` is this rank's :func:`shard_cache` and every rank of
+    ``ctx.mesh`` takes the step together."""
     pos = cache["pos"]
     x = embed_tokens(params, cfg, tokens[:, None], pos_offset=pos)[:, 0]
     for i, name, spec, lp, cp in _walk(params, cfg):
         layer_cache = {k: t[i] for k, t in cache["blocks"][name].items()}
         x = B.layer_decode(lp, x, cfg, spec, layer_cache, pos,
-                           window=cfg.sliding_window)
+                           window=cfg.sliding_window, ctx=ctx)
         if cp is not None:
             h = rms_norm(x, cp["ln_x"], cfg.norm_eps)
             x = x + B.cross_attn_decode(cp["xattn"], h, cfg, {
@@ -369,6 +373,28 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, cache):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, cfg, x), {"blocks": cache["blocks"],
                                      "pos": pos + 1}
+
+
+def shard_cache(cache, ctx: ShardCtx):
+    """This rank's part of a whole cache for the sequence-sharded decode,
+    as new tensors (a decode step writes its cache in place): slice
+    ``ctx.shard`` of ``ctx.shards`` along the sequence axis of every
+    attention layer's (n, B, S, Hkv, Dh) ``k`` / ``v``; Mamba states and
+    the encoder's ``xk`` / ``xv`` whole."""
+    n = ctx.shards
+
+    def part(t):
+        S = t.shape[2]
+        if S % n:
+            raise ValueError(f"a {S}-row cache does not split over {n} "
+                             "ranks")
+        s = S // n
+        return t[:, :, ctx.shard * s:(ctx.shard + 1) * s].clone()
+
+    return {"blocks": {name: {k: part(t) if k in ("k", "v") else t.clone()
+                              for k, t in d.items()}
+                       for name, d in cache["blocks"].items()},
+            "pos": cache["pos"]}
 
 
 def make_cross_cache(params, cfg: ModelConfig, enc_out):

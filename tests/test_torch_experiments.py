@@ -51,10 +51,9 @@ from repro_torch.models import classifier as tcls
 
 torch.set_num_threads(2)
 
-# the reference's engine fields the port has no counterpart for (the
-# sharded plane: ROADMAP queue 1 item 5; kernel dispatch and the
-# sanitizer: by device, no knob)
-JAX_ONLY_ENGINE = ("kernel_backend", "sanitize", "mesh_shape")
+# the reference's engine fields the port has no counterpart for (kernel
+# dispatch and the sanitizer: by device, no knob)
+JAX_ONLY_ENGINE = ("kernel_backend", "sanitize")
 
 
 def _jax_dict(spec):

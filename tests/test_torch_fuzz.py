@@ -28,9 +28,8 @@ jspec = importlib.import_module("repro.experiments.spec")
 torch.set_num_threads(2)
 
 # the reference's spec fields the port has no counterpart for (kernel
-# dispatch and the sanitizer: by device, no knob; the sharded plane:
-# ROADMAP queue 1 item 5)
-JAX_ONLY_ENGINE = ("kernel_backend", "sanitize", "mesh_shape")
+# dispatch and the sanitizer: by device, no knob)
+JAX_ONLY_ENGINE = ("kernel_backend", "sanitize")
 
 
 def _jax_dict(spec):
