@@ -3,8 +3,8 @@
 card and check it: the CE-FL rounds, the front door with the ``cefl``
 strategy, multi-seed sweeps with resume, cohorts, the scenario fuzzer,
 the LM serving path, CE-FL training of mamba2-130m and whisper-medium,
-serving of the MoE and hybrid models, and the sharded plane on rank
-meshes.
+serving of the MoE and hybrid models, the sharded plane on rank meshes,
+and the five examples with the runtime sanitizer.
 
     python3 chip_smoke.py            # from the repo root, on a machine with
                                      # one CUDA card, nvcc and nvidia-smi
@@ -168,6 +168,29 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              logits within 5e-4 of the single-device kernel path.  Times
              are recorded but are no scaling figure: the ranks share one
              card and gloo stages through host memory.
+12. examples — (runs after 11) the five examples of
+             ``repro_torch.examples`` through their ``main(argv)`` in this
+             process, the counters set to 0 just before each call and read
+             just after: (a) quickstart whole, and once as ``python -m
+             repro_torch.examples.quickstart``; (b) the front door's
+             ``run quickstart --set sanitize=true`` (finite every round),
+             the same run through ``experiments.run`` under
+             ``engine.sanitize``, equal to (a) bit for bit with (a)'s
+             launches, then with ``engine.eta=1e12``, which must raise
+             ``SanitizerError``; (c) ``cefl_vs_baselines --full --rounds
+             3`` (20/10/5, 28x28); (d) ``mobility_demo`` whole (a
+             migration and a handover under cefl, none under fixed:0);
+             each CE-FL example must launch ``fedprox_accum`` and
+             ``nova_aggregate``; (e) ``serve_lm --arch codeqwen1.5-7b`` at
+             full width and depth in f32 (32.8 GB), exactly 32 x 15
+             ``swa_decode_attention`` launches and no other kernel, its
+             launch shapes (f32, G 1, D 128) checked and timed in phase 4
+             with both timers beside SDPA; (f) ``train_lm_cefl --full
+             --steps 3`` (mamba2-130m) from a temporary working directory:
+             ``fedprox_accum`` twice and ``nova_aggregate_stacked`` once a
+             round, losses finite and falling, the checkpoint written.
+             The round kernels' launch shapes of (a)-(d) and (f) are
+             recorded and checked in phase 4 with the other paths'.
 4. kernels — each hand-written kernel against its plain PyTorch version on
              the same card tensors, at every shape the paths launched it
              with and at extra cases, with the tolerance stated below
@@ -2076,7 +2099,7 @@ SWA_EXTRA = [
 
 
 def swa_checks(dev, timer, bw, f32_rate, bf16_rate, path, Hq=48, Hkv=4,
-               D=128, cases=None):
+               D=128, cases=None, run_timer=None):
     """``swa_decode_attention`` against its plain version at the first and
     last (B, S, cache_len) of each serve run (``path``: {(B, S,
     cache_len): launches}; bf16, starcoder2's heads) and at
@@ -2099,7 +2122,9 @@ def swa_checks(dev, timer, bw, f32_rate, bf16_rate, path, Hq=48, Hkv=4,
     reports its device time per launch.  Returns the rows and the
     row of the main path's shape (the 8 x 512 run's first step).
     ``cases``: (B, Hq, Hkv, D, S, cache_len, dtype, launches) rows to
-    check instead (phase 10's path shapes); then there is no main row."""
+    check instead (phase 10's and 12's path shapes); then there is no main
+    row.  ``run_timer``: a :class:`RunTimer` that also times each row as
+    a run of 200 launches (``run_ms``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -2151,6 +2176,11 @@ def swa_checks(dev, timer, bw, f32_rate, bf16_rate, path, Hq=48, Hkv=4,
             q, k, v, cl))
         row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, enable_gqa=True))
+        if run_timer is not None:
+            row["run_ms"] = run_timer(
+                lambda q_, k_, v_: kswa.swa_decode_attention(q_, k_, v_, cl),
+                lambda: tuple(torch.randn(t.shape, generator=gen, device=dev)
+                              .to(dt) for t in (q, k, v)), nbytes)
         rate = bf16_rate if dt == torch.bfloat16 else f32_rate
         row["bound_ms"] = max(nbytes / bw, flops / rate) * 1e3
         row["bound_by"] = "bytes" if nbytes / bw >= flops / rate \
@@ -3831,6 +3861,272 @@ def drive_mesh_phase(dev):
     return dict(launches), records
 
 
+# ------------------------------------------------ phase 12: the examples --
+
+# The examples' arguments (each adds --device, default cuda): the three
+# CE-FL examples at their own or the paper's width, codeqwen1.5-7b served
+# whole in f32 at the example's defaults (batch 4, prompt 32, 16 tokens,
+# cache 128), mamba2-130m trained whole for 3 rounds.
+P12_SERVE_ARCH = "codeqwen1.5-7b"
+P12_CVB = ["--full", "--rounds", "3"]
+P12_TRAIN = ["--full", "--steps", "3"]
+
+
+def _counted(label, fn, want=None):
+    """``fn()`` in this process with its printed output kept in
+    ``OUT/phase12_<label>.txt``; the launch counters are set to 0 just
+    before the call and read just after.  ``want``: the exact launch
+    counts the call must make (every other kernel 0).  Returns (fn's
+    result, launches, seconds, output)."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import ops
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    ops.reset_launches()                       # counts to 0: the path
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)              # read just after
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / f"phase12_{label}.txt").write_text(out.getvalue())
+    if want is not None:
+        full = dict.fromkeys(launches, 0)
+        full.update(want)
+        if launches != full:
+            raise AssertionError(f"{label}: launches {launches} != {full}")
+    log(f"    {label}: {secs:.1f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return result, launches, secs, out.getvalue()
+
+
+def _example(name, argv, want=None):
+    """``repro_torch.examples.<name>.main(argv)``, counted."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    return _counted(name, lambda: mod.main(list(argv)), want)
+
+
+def _round_kernels(name, launches):
+    """A CE-FL example must have launched both round kernels."""
+    if not (launches["fedprox_accum"] and launches["nova_aggregate"]):
+        raise AssertionError(f"{name}: no fedprox_accum or nova_aggregate "
+                             f"launch: {launches}")
+
+
+def drive_examples_phase(dev):
+    """Phase 12: the five examples of ``repro_torch.examples`` on the card
+    through their ``main(argv)`` (and quickstart once through ``python
+    -m``), plus the sanitizer through the front door: (a) quickstart
+    whole; (b) ``experiments run quickstart --set sanitize=true`` finite
+    every round, then with ``engine.eta=1e12`` it must raise
+    ``SanitizerError``, and the same run through ``experiments.run`` under
+    ``engine.sanitize`` must equal (a) bit for bit, launches included;
+    (c) ``cefl_vs_baselines --full --rounds 3``; (d)
+    ``mobility_demo`` whole (its own asserts: a migration and a handover
+    under cefl, none under fixed:0); (e) ``serve_lm`` on codeqwen1.5-7b at
+    full width and depth in f32, exactly 32 x 15 ``swa_decode_attention``
+    launches, its launch shapes recorded for phase 4; (f)
+    ``train_lm_cefl --full --steps 3`` from a temporary working
+    directory: ``fedprox_accum`` gamma and ``nova_aggregate_stacked`` once
+    a round, losses finite and falling.  The round kernels' launch shapes
+    are recorded for phase 4: (a)-(d) in one ``_ShapeRecorder`` (the
+    ``-m`` subprocess runs (a)'s shapes again, unrecorded), (f) in
+    another, since its plane is an LM's.  Returns (launches, swa
+    recorder, the CE-FL examples' shapes, train_lm_cefl's shapes,
+    records)."""
+    import os
+    import re
+    import tempfile
+
+    from repro_torch.analysis import SanitizerError
+    from repro_torch.configs import get_config
+    from repro_torch import experiments
+    from repro_torch.experiments import __main__ as cli
+    from repro_torch.experiments import get_experiment
+    from repro_torch.experiments.trace import read_trace
+
+    launches, rec = Counter(), {}
+    shapes, lm_shapes = _ShapeRecorder(), _ShapeRecorder()
+    t_phase = time.perf_counter()
+    log("  (a) quickstart, whole (8 cefl rounds)")
+    with shapes:
+        res, lc, secs, _ = _example("quickstart", [])
+    quick, quick_lc = res, lc
+    _round_kernels("quickstart", lc)
+    launches.update(lc)
+    rec["quickstart"] = {"s": secs, "launches": lc,
+                         "acc": res.series("acc"),
+                         "loss": res.series("loss"),
+                         "aggregator": res.series("aggregator"),
+                         "energy": res.series("energy"),
+                         "delay": res.series("delay")}
+    if not np.isfinite(rec["quickstart"]["loss"]).all():
+        raise AssertionError(f"quickstart losses {rec['quickstart']}")
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-m",
+                           "repro_torch.examples.quickstart"], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    (OUT / "phase12_quickstart_m.txt").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0 or "final accuracy" not in proc.stdout:
+        raise AssertionError(
+            f"python -m repro_torch.examples.quickstart: exit "
+            f"{proc.returncode}: {proc.stderr[-2000:]}")
+    rec["quickstart_m_s"] = time.perf_counter() - t0
+    log(f"  python -m repro_torch.examples.quickstart: exit 0 in "
+        f"{rec['quickstart_m_s']:.1f} s ("
+        f"{proc.stdout.strip().splitlines()[-1]})")
+
+    log("  (b) experiments run quickstart --set sanitize=true; the same "
+        "through experiments.run, equal to (a) bit for bit; then "
+        "engine.eta=1e12 must raise SanitizerError")
+    trace = OUT / "phase12_sanitize_trace.jsonl"
+    argv = ["run", "quickstart", "--set", "sanitize=true", "--trace",
+            str(trace)]
+    with shapes:
+        rc, lc, secs, _ = _counted("sanitize", lambda: cli.main(argv))
+    if rc != 0:
+        raise AssertionError(f"experiments {argv}: exit {rc}")
+    rounds = read_trace(trace)
+    if len(rounds) != 8 or not all(
+            np.isfinite([r["loss"], r["acc"], r["energy"], r["delay"]]).all()
+            for r in rounds):
+        raise AssertionError(f"experiments {argv}: trace {rounds}")
+    _round_kernels("quickstart sanitize", lc)
+    launches.update(lc)
+    rec["sanitize_clean_s"] = secs
+    spec = get_experiment("quickstart").override(**{"engine.sanitize": True})
+    with shapes:
+        res, lc, secs, _ = _counted(
+            "sanitize_run", lambda: experiments.run(spec, device=dev),
+            want=quick_lc)
+    launches.update(lc)
+    for key in ("acc", "loss", "aggregator", "energy", "delay",
+                "dc_points"):
+        if res.series(key) != quick.series(key):
+            raise AssertionError(f"sanitize run's {key} {res.series(key)} "
+                                 f"!= quickstart's {quick.series(key)}")
+    for k in quick.params:
+        if not torch.equal(res.params[k], quick.params[k]):
+            raise AssertionError(f"sanitize run's params[{k!r}] differ "
+                                 f"from quickstart's")
+    rec["sanitize_run"] = {"s": secs, "launches": lc,
+                           "equal_to_quickstart": True}
+    log("    under sanitize: launches, acc, loss, aggregator, energy, "
+        "delay, dc_points and params equal (a)'s bit for bit")
+    argv = ["run", "quickstart", "--set", "sanitize=true", "--set",
+            "engine.eta=1e12", "--rounds", "2"]
+    try:
+        with shapes:
+            _counted("sanitize_divergent", lambda: cli.main(argv))
+    except SanitizerError as e:
+        rec["sanitize_divergent"] = str(e)
+        log(f"    eta=1e12 raised as it must: {e}")
+    else:
+        raise AssertionError("quickstart at eta=1e12 under sanitize ran to "
+                             "its end without a SanitizerError")
+
+    log("  (c) cefl_vs_baselines --full --rounds 3 (20/10/5, 28x28)")
+    with shapes:
+        res, lc, secs, _ = _example("cefl_vs_baselines", P12_CVB)
+    _round_kernels("cefl_vs_baselines", lc)
+    launches.update(lc)
+    rec["cefl_vs_baselines"] = {"s": secs, "launches": lc, "final": {
+        s: {k: getattr(res.result(0, s).final, k)
+            for k in ("acc", "loss", "cum_energy", "cum_delay")}
+        for s in ("cefl", "fednova", "fedavg")}}
+    for s, f in rec["cefl_vs_baselines"]["final"].items():
+        if not np.isfinite(list(f.values())).all():
+            raise AssertionError(f"cefl_vs_baselines {s}: {f}")
+
+    log("  (d) mobility_demo, whole (20 rounds of campus_walk, cefl and "
+        "fixed:0)")
+    with shapes:
+        res, lc, secs, _ = _example("mobility_demo", [])
+    _round_kernels("mobility_demo", lc)
+    launches.update(lc)
+    cefl, fixed = res["cefl"], res["fixed"]
+    rec["mobility_demo"] = {
+        "s": secs, "launches": lc,
+        "cefl_migrations": sum(r.aggregator_moved for r in cefl.reports),
+        "cefl_handovers": sum(len(r.handovers) for r in cefl.reports),
+        "fixed_migrations": sum(r.aggregator_moved for r in fixed.reports),
+        "cefl_aggregator": cefl.series("aggregator"),
+        "final_acc": {"cefl": cefl.final.acc, "fixed": fixed.final.acc}}
+    m = rec["mobility_demo"]
+    if m["cefl_migrations"] < 1 or m["cefl_handovers"] < 1 \
+            or m["fixed_migrations"]:
+        raise AssertionError(f"mobility_demo: {m}")
+    log(f"    cefl {m['cefl_migrations']} migrations, "
+        f"{m['cefl_handovers']} handovers; fixed:0 "
+        f"{m['fixed_migrations']} migrations")
+
+    cfg = get_config(P12_SERVE_ARCH)
+    steps = 15                     # serve_lm's 16 tokens, less prefill's
+    log(f"  (e) serve_lm --arch {P12_SERVE_ARCH} (full width and depth, "
+        "f32, batch 4, prompt 32, 16 tokens, cache 128)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _SwaRecorder() as swa:
+        toks, lc, secs, out = _example(
+            "serve_lm", ["--arch", P12_SERVE_ARCH],
+            want={"swa_decode_attention": cfg.num_layers * steps})
+    launches.update(lc)
+    gen_s = float(re.search(r"generated \d+ tokens/seq in ([0-9.]+)s",
+                            out).group(1))
+    rec["serve_lm"] = {
+        "s": secs, "launches": lc, "arch": cfg.name,
+        "layers": cfg.num_layers, "tokens": toks.tolist(),
+        "decode_s_15_steps": gen_s,
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "prefill_line": [ln for ln in out.splitlines()
+                         if "prefill" in ln][0]}
+    if tuple(toks.shape) != (4, 16) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"serve_lm tokens {toks}")
+    log(f"    {rec['serve_lm']['prefill_line'].strip()}; decode "
+        f"{gen_s / steps * 1e3:.2f} ms/step (host clock over 15 steps, "
+        f"one synchronize); peak "
+        f"{rec['serve_lm']['peak_device_bytes'] / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+
+    log("  (f) train_lm_cefl --full --steps 3 (mamba2-130m, full width and "
+        "depth) from a temporary working directory")
+    gamma = get_experiment("lm_mamba2_130m").model.gamma
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            with lm_shapes:
+                res, lc, secs, _ = _example(
+                    "train_lm_cefl", P12_TRAIN,
+                    want={"fedprox_accum": gamma * 3,
+                          "nova_aggregate_stacked": 3})
+            ckpt = Path(tmp) / "results" / "ckpt_mamba2_cefl" / \
+                "manifest.json"
+            if not ckpt.exists():
+                raise AssertionError(f"no checkpoint at {ckpt}")
+        finally:
+            os.chdir(cwd)
+    launches.update(lc)
+    losses = res.series("loss")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train_lm_cefl losses {losses}")
+    rec["train_lm_cefl"] = {"s": secs, "launches": lc, "losses": losses,
+                            "round_s": res.series("wall_time")}
+    log(f"    losses {[round(x, 4) for x in losses]}")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 12: {rec['phase_s']:.1f} s")
+    return dict(launches), swa, shapes.shapes, lm_shapes.shapes, rec
+
+
 # ---------------------------------------------------------------- main --
 
 def main() -> int:
@@ -3944,22 +4240,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     h_launches, h_records = drive_mesh_phase(dev)
 
+    log("phase 12: the five examples (python -m repro_torch.examples.*) "
+        "through their main(argv): quickstart (and once through -m), the "
+        "sanitizer through the front door, cefl_vs_baselines --full, "
+        "mobility_demo, serve_lm on codeqwen1.5-7b (f32), train_lm_cefl "
+        "--full")
+    torch.cuda.empty_cache()
+    e_launches, e_swa, e_shapes, e_lm_shapes, e_records = \
+        drive_examples_phase(dev)
+
     log(f"phase 4: kernels vs plain versions at the paths' shapes and extra "
         f"cases ({smi})")
     timer = Timer(dev)
     # each kernel at every shape any path launched it with
     checked = {"fedprox_accum": shapes["fedprox_accum"]
                + t_shapes["fedprox_accum"] + m_shapes["fedprox_accum"]
-               + c_shapes["fedprox_accum"] + p_shapes["fedprox_accum"],
+               + c_shapes["fedprox_accum"] + p_shapes["fedprox_accum"]
+               + e_shapes["fedprox_accum"],
                "nova_aggregate": shapes["nova_aggregate"]
                + a_shapes["nova_aggregate"] + c_shapes["nova_aggregate"]
-               + p_shapes["nova_aggregate"]}
+               + p_shapes["nova_aggregate"] + e_shapes["nova_aggregate"]}
     rows, main_rows = kernel_checks(dev, timer, bw, f32_rate, checked)
     r_rows, main_rows["robust_aggregate"] = robust_checks(
         dev, timer, bw, f32_rate, t_shapes["robust_aggregate"])
     crossover, network_faster = robust_crossover(dev, timer)
     s_rows, main_rows["nova_aggregate_stacked"] = stacked_checks(
-        dev, timer, bw, f32_rate, m_shapes["nova_aggregate_stacked"])
+        dev, timer, bw, f32_rate, m_shapes["nova_aggregate_stacked"]
+        + e_shapes["nova_aggregate_stacked"])
     u_rows, main_rows["fedprox_update"] = update_checks(
         dev, timer, bw, f32_rate, a_shapes["fedprox_update"])
     w_rows, main_rows["swa_decode_attention"] = swa_checks(
@@ -3971,7 +4278,17 @@ def main() -> int:
                         cases=x_swa.cases())[0]
     x_rows += lm_kernel_checks(dev, timer, None, bw, f32_rate,
                                x_shapes.shapes)
-    rows += r_rows + s_rows + u_rows + w_rows + x_rows
+    log("  phase 12's path shapes: swa_decode_attention at codeqwen1.5-7b's"
+        " f32 decode (Hq = Hkv = 32, D 128, G 1), both timers and SDPA; "
+        "fedprox_accum and nova_aggregate_stacked at train_lm_cefl's plane "
+        "(the CE-FL examples' round kernels are in the rows above)")
+    e_rows = swa_checks(dev, timer, bw, f32_rate, bf16_rate, None,
+                        cases=e_swa.cases(), run_timer=RunTimer())[0]
+    for r in e_rows:
+        log(f"    run of 200: {r['run_ms'] * 1e3:.2f} us a launch")
+    e_lm_rows = lm_kernel_checks(dev, timer, None, bw, f32_rate,
+                                 e_lm_shapes)
+    rows += r_rows + s_rows + u_rows + w_rows + x_rows + e_rows + e_lm_rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} kernel case(s) disagree with the "
@@ -3997,7 +4314,7 @@ def main() -> int:
             "launches": sum(c.get(name, 0) for c in (
                 launches, t_launches, m_launches, a_launches, s_launches,
                 c_launches, p_launches, l_launches, x_launches,
-                h_launches)),
+                h_launches, e_launches)),
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -4043,6 +4360,14 @@ def main() -> int:
         "phase10_swa_cases": [list(c) for c in x_swa.cases()],
         "phase10_kernel_rows": x_rows,
         "phase11": h_records, "phase11_launches": h_launches,
+        "phase12": e_records, "phase12_launches": e_launches,
+        "phase12_swa_cases": [list(c) for c in e_swa.cases()],
+        "phase12_kernel_rows": e_rows + e_lm_rows,
+        "phase12_launch_shapes": {
+            part: {k: [list(key) + [n] for key, n in c.items()]
+                   for k, c in sh.items()}
+            for part, sh in (("cefl_examples", e_shapes),
+                             ("train_lm_cefl", e_lm_shapes))},
         "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     full, check = l_records["lm_mamba2_130m"], l_records["check"]
     log(f"phase 9 summary: lm_mamba2_130m loss {full['losses'][0]:.4f} -> "
@@ -4080,6 +4405,22 @@ def main() -> int:
         + f"; lm_decode_step logits err "
         f"{h_records['lm_decode']['logits_max_abs_err']:.2e}; launches "
         f"{h_launches}")
+    cv, mb = e_records["cefl_vs_baselines"], e_records["mobility_demo"]
+    sv, tr = e_records["serve_lm"], e_records["train_lm_cefl"]
+    log("phase 12 summary: " + f"{e_records['phase_s']:.1f} s; quickstart "
+        f"{e_records['quickstart']['s']:.1f} s (-m "
+        f"{e_records['quickstart_m_s']:.1f} s); cefl_vs_baselines --full "
+        f"{cv['s']:.1f} s, energy " + ", ".join(
+            f"{k} {v['cum_energy']:.1f} J" for k, v in cv["final"].items())
+        + f"; mobility_demo {mb['s']:.1f} s, {mb['cefl_migrations']} "
+        f"migrations, {mb['cefl_handovers']} handovers; serve_lm "
+        f"{sv['arch']} decode {sv['decode_s_15_steps'] / 15 * 1e3:.2f} "
+        f"ms/step, swa " + ", ".join(
+            f"len {r['cache_len']} {r['ms'] * 1e3:.2f} / "
+            f"{r['run_ms'] * 1e3:.2f} us (bound {r['bound_ms'] * 1e3:.2f}, "
+            f"SDPA {r['library_ms'] * 1e3:.2f})" for r in e_rows)
+        + f"; train_lm_cefl --full loss {tr['losses'][0]:.4f} -> "
+        f"{tr['losses'][-1]:.4f}; launches {e_launches}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -57,6 +57,11 @@ class EngineOptions:
                                     # t % eval_every == 0 and the last
                                     # round; off-cadence rounds carry the
                                     # last measured accuracy forward
+    sanitize: bool = False          # runtime sanitizer
+                                    # (repro_torch.analysis): a NaN/Inf
+                                    # check of the aggregated params after
+                                    # every round.  Debug aid: one host
+                                    # sync a round, keep off in benchmarks
     robust_agg: str = "none"        # byzantine-robust aggregation:
                                     # "none" (weighted eq. 11), or
                                     # "trimmed_mean" / "median", the

@@ -915,6 +915,11 @@ class Engine:
             aggregator_moved=(state.prev_agg is not None
                               and plan.aggregator != state.prev_agg),
             active_ues=int(staged.events.active_ues))
+        if self.opts.sanitize:
+            # deferred import: the analysis package is a debug aid, not
+            # part of the engine's import-time surface
+            from repro_torch.analysis.sanitize import check_finite
+            check_finite(state.params, f"params after round {staged.t}")
         state.prev_agg = plan.aggregator
         state.reports.append(report)
         for cb in self.callbacks:
@@ -937,7 +942,14 @@ class Engine:
         return self.run_loop(state, online_datasets)
 
     def run_loop(self, state: LoopState, online_datasets) -> RunResult:
-        """Drive an initialized LoopState to completion."""
+        """Drive an initialized LoopState to completion.
+
+        The reference runs this loop under a ``jax.random`` key-reuse
+        detector when ``opts.sanitize`` is set.  The port has no
+        counterpart: its draws come from one ``torch.Generator`` a run
+        (``state.generator``), which advances on every draw and has no
+        key to consume twice.  ``finish_round`` keeps the sanitizer's
+        NaN/Inf check."""
         while state.t < self.opts.rounds and not state.stopped:
             staged = self.begin_round(state, online_datasets)
             mean_loss, acc = self.execute_round(state, staged)

@@ -6,8 +6,9 @@ Counterpart of ``repro.core.estimation``:
   * zeta1, zeta2: bounded dissimilarity (Assumption 3) — Alg. 6 via least
     squares on (sum p_i ||g_i||^2, ||sum p_i g_i||^2) pairs
 
-(The reference's Alg.-7 running max and Proposition-1 bound have no
-caller on the port's paths and are not ported.)
+Also the Alg.-7 post-processing (:func:`dynamic_update`, a running
+max) and the Proposition-1 mini-batch variance bound
+(:func:`sgd_variance_bound`).
 
 All estimates are scaled by ``safety`` (paper uses 1.5x) before use.
 
@@ -148,3 +149,22 @@ def estimate_constants(loss_fn: Callable, params_template,
                        sigma_i=sigma, zeta1=safety * z1, zeta2=safety * z2,
                        F0_gap=f0_gap)
 
+
+def dynamic_update(old: MLConstants, new: MLConstants) -> MLConstants:
+    """Alg. 7 post-processing: element-wise running max."""
+    return MLConstants(
+        L=max(old.L, new.L),
+        theta_i=np.maximum(old.theta_i, new.theta_i),
+        sigma_i=np.maximum(old.sigma_i, new.sigma_i),
+        zeta1=max(old.zeta1, new.zeta1),
+        zeta2=max(old.zeta2, new.zeta2),
+        F0_gap=max(old.F0_gap, new.F0_gap))
+
+
+def sgd_variance_bound(m_frac: float, D: int, sigma: float,
+                       theta: float) -> float:
+    """Proposition 1: E||grad_tilde F - grad F||^2 <=
+    2 (1-m)(D-1)/(m D^2) * sigma^2 * Theta^2 (without-replacement)."""
+    m = np.clip(m_frac, 1e-9, 1.0)
+    return float(2 * (1 - m) * (D - 1) / (m * D ** 2) * sigma ** 2
+                 * theta ** 2)

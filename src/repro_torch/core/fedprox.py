@@ -50,6 +50,12 @@ def a_coefficients(gamma: int, eta: float, mu: float) -> torch.Tensor:
     return torch.pow(base, (gamma - 1.0) - ell)
 
 
+def a_norms(gamma: int, eta: float, mu: float):
+    """(||a||_1, ||a||_2^2) of :func:`a_coefficients`, 0-d f32 tensors."""
+    a = a_coefficients(gamma, eta, mu)
+    return torch.sum(a), torch.sum(a * a)
+
+
 @dataclasses.dataclass
 class LocalResult:
     params: ParamPlane    # x_i^{(t, gamma_i)}
@@ -347,3 +353,12 @@ def train_multi_staged(anchors: torch.Tensor, spec, loss_fn: Callable,
         p0, p0, data_stack, idx, weights, a_coefficients(gamma, eta, mu),
         eta, mu)
 
+
+def verify_accumulation_identity(params0, result: LocalResult, *, eta, mu):
+    """Check eq. (9): (x^t - x^{t,gamma})/eta = ||a||_1 d_i = sum_l a_l
+    grad F(x^{t,l}).  The proximal pull is the (1 - eta*mu) factor of
+    a_l, so it holds for any mu.  Returns the max abs deviation over the
+    plane (its zero padding deviates by 0) — used by tests."""
+    diff = (as_plane(params0).data - result.params.data) / eta
+    a1 = float(torch.sum(a_coefficients(result.gamma, eta, mu)))
+    return float((diff - result.d_i.data * a1).abs().max())

@@ -63,7 +63,8 @@ def _load_spec(name: str):
 
 
 # --set keys that name a nested spec field by its last part
-_SHORT_KEYS = {"mesh_shape": "engine.mesh_shape"}
+_SHORT_KEYS = {"mesh_shape": "engine.mesh_shape",
+               "sanitize": "engine.sanitize"}
 
 
 def _apply_overrides(spec, args):

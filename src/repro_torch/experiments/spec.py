@@ -20,11 +20,14 @@ string-registry pattern as strategies and scenarios::
     assert from_json(to_json(spec)) == spec
 
 The port's specs carry the fields the port runs: the classifier and LM
-models, and the engine fields of the port's ``EngineOptions``
-(``kernel_backend`` and ``sanitize`` have no port: kernels dispatch by
-device).  ``engine.mesh_shape`` shards the fused round over a
-``(dpu, rows)`` rank mesh of the initialised default group (``torchrun
-... run NAME --set mesh_shape=2,2``).
+models, and the engine fields of the port's ``EngineOptions``.  A spec
+file the reference wrote loads here: its ``engine.kernel_backend`` is
+accepted at the reference's default ``"auto"`` and dropped (kernels
+dispatch by the tensor's device), and any other value raises
+``ValueError`` on every path (``from_dict``, ``from_json``,
+``override``, the CLI's ``--set``).  ``engine.mesh_shape`` shards the
+fused round over a ``(dpu, rows)`` rank mesh of the initialised default
+group (``torchrun ... run NAME --set mesh_shape=2,2``).
 """
 from __future__ import annotations
 
@@ -120,6 +123,8 @@ class EngineSpec:
     m_default: float = 0.5
     rate_jitter: float = 0.15
     eval_every: int = 1
+    sanitize: bool = False          # NaN/Inf check of the params after
+                                    # every round (repro_torch.analysis)
     robust_agg: str = "none"        # byzantine counter: "none" /
                                     # "trimmed_mean" / "median"
     trim_frac: float = 0.1
@@ -168,7 +173,8 @@ class ExperimentSpec:
             solver_backend=e.solver_backend,
             gamma_default=e.gamma_default, m_default=e.m_default,
             rate_jitter=e.rate_jitter, seed=int(seed),
-            eval_every=e.eval_every, robust_agg=e.robust_agg,
+            eval_every=e.eval_every, sanitize=e.sanitize,
+            robust_agg=e.robust_agg,
             trim_frac=e.trim_frac, mesh_shape=e.mesh_shape,
             cohort_size=e.cohort_size)
 
@@ -208,9 +214,28 @@ def _int_pair(value) -> Tuple[int, int]:
     return d, r
 
 
+# The reference's EngineSpec field with no counterpart: kernel dispatch
+# follows the tensor's device (repro_torch.kernels.ops), so the value
+# that means the same, the reference's default, is accepted and dropped.
+_KERNEL_BACKEND = "kernel_backend"
+
+
+def _drop_kernel_backend(value) -> None:
+    if value != "auto":
+        raise ValueError(
+            f"engine.kernel_backend={value!r} has no counterpart in the "
+            "port, by the device rule: kernel dispatch follows the tensor's "
+            "device (a CUDA tensor launches the hand-written kernel, a CPU "
+            "tensor runs the plain version) and there is no backend knob; "
+            "only the reference's default 'auto' is accepted (and dropped)")
+
+
 def _replace_path(obj, parts: List[str], value):
     field_types = {f.name: f for f in dataclasses.fields(obj)}
     head = parts[0]
+    if isinstance(obj, EngineSpec) and parts == [_KERNEL_BACKEND]:
+        _drop_kernel_backend(value)
+        return obj
     if head not in field_types:
         raise KeyError(f"{type(obj).__name__} has no field {head!r} "
                        f"(available: {sorted(field_types)})")
@@ -245,6 +270,9 @@ def _coerce_value(current, value, annotation=""):
 
 
 def _from_dict(cls, d: dict):
+    if cls is EngineSpec and _KERNEL_BACKEND in d:
+        d = dict(d)
+        _drop_kernel_backend(d.pop(_KERNEL_BACKEND))
     kwargs = {}
     for f in dataclasses.fields(cls):
         if f.name not in d:

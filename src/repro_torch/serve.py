@@ -67,7 +67,7 @@ def serve(cfg: ModelConfig, prompts, *, gen: int, cache_len: int,
     (every step's logits finite, checked on the device and read once at
     the end).  The argmax tokens stay on the device between steps."""
     dev = require_device(device)
-    prompts = torch.as_tensor(np.asarray(prompts), device=dev).long()
+    prompts = torch.as_tensor(prompts, device=dev).long()
     P = prompts.shape[1]
     if not cfg.attn_free and cfg.sliding_window is None \
             and P + gen - 1 > cache_len:

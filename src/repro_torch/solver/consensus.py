@@ -49,3 +49,11 @@ def consensus_scan(values: torch.Tensor, W: torch.Tensor, J: int):
         flat = W @ flat
     return flat.reshape(values.shape)
 
+
+
+def consensus_error(values) -> float:
+    """Max deviation from the global average over nodes (diagnostic);
+    ``values`` (V, ...) per-node copies, numpy or a tensor."""
+    flat = torch.as_tensor(values)
+    flat = flat.reshape(flat.shape[0], -1)
+    return float((flat - flat.mean(dim=0, keepdim=True)).abs().max())

@@ -26,7 +26,6 @@ import warnings
 import torch
 from torch.func import grad, jvp, vjp, vmap
 
-from repro_torch.core.convergence import MLConstants
 from repro_torch.solver import constraints as K
 from repro_torch.solver import variables as V
 from repro_torch.solver.consensus import consensus_scan
@@ -69,6 +68,7 @@ def make_surrogate(spec: V.WSpec, hyper: PDHyper, ow: ObjectiveWeights,
     flat vectors; every tensor argument lives on one device, and so do
     the results (``pd_iters`` a 0-dim int32 tensor).
     """
+    from repro_torch.core.convergence import MLConstants  # local: avoids cycle
     _load_jvp_decompositions()
     L_s, zeta1_s, zeta2_s, f0_s = consts_scalars
     lam1, L_C, kappa = hyper.lambda1, hyper.L_C, hyper.kappa

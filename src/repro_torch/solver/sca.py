@@ -15,11 +15,10 @@ does.  The reference's numpy oracle (``backend="ref"``, its
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import TYPE_CHECKING, Dict, List, Optional
 
 import torch
 
-from repro_torch.core.convergence import MLConstants
 from repro_torch.network.costs import as_f32, network_costs
 from repro_torch.solver import constraints as K
 from repro_torch.solver import variables as V
@@ -28,6 +27,9 @@ from repro_torch.solver.objective import (ObjectiveWeights,
                                           apply_required_deltas, objective,
                                           objective_breakdown)
 from repro_torch.solver.primal_dual import PDHyper, make_surrogate
+
+if TYPE_CHECKING:     # core imports the solver (through its strategies)
+    from repro_torch.core.convergence import MLConstants
 
 
 @dataclasses.dataclass

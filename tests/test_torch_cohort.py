@@ -258,8 +258,7 @@ def test_cohort_spec_roundtrips_through_json_as_the_reference():
     jd = jexp.ExperimentSpec().override(
         **{"engine.cohort_size": 4}).to_dict()["engine"]
     td = back.to_dict()["engine"]
-    assert td == {k: v for k, v in jd.items()
-                  if k not in ("kernel_backend", "sanitize")}
+    assert td == {k: v for k, v in jd.items() if k != "kernel_backend"}
 
 
 def test_cohort_threat_round_reduces_more_than_64_dpus(monkeypatch):

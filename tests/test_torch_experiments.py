@@ -2,7 +2,7 @@
 modules under it against the JAX package's, on the CPU.
 
 * Specs and presets: every CE-FL preset equals the reference's field for
-  field (less the engine fields the port has no counterpart for), the JSON
+  field (less the engine field the port has no counterpart for), the JSON
   round trip is exact, the LM presets raise naming their ROADMAP item.
 * The CLI: ``list``, ``show``, ``validate`` in-process; ``run`` without
   ``--device`` asks for the card and raises here.
@@ -51,9 +51,9 @@ from repro_torch.models import classifier as tcls
 
 torch.set_num_threads(2)
 
-# the reference's engine fields the port has no counterpart for (kernel
-# dispatch and the sanitizer: by device, no knob)
-JAX_ONLY_ENGINE = ("kernel_backend", "sanitize")
+# the reference's engine field the port has no counterpart for (kernel
+# dispatch: by device, no knob; "auto" loads and is dropped)
+JAX_ONLY_ENGINE = ("kernel_backend",)
 
 
 def _jax_dict(spec):
@@ -82,7 +82,7 @@ def test_presets_equal_the_reference_and_round_trip_json():
     assert (over.engine.rounds, over.seeds, over.strategy) == \
         (3, (4, 5), "fixed:1")
     assert texp.from_json(texp.to_json(over)) == over
-    with pytest.raises(KeyError, match="no field"):
+    with pytest.raises(ValueError, match="device rule"):
         over.override(**{"engine.kernel_backend": "cpu"})
     # sweeps run (tests/test_torch_sweep.py); a grid needs unique names
     with pytest.raises(ValueError, match="unique names"):

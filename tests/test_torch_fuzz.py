@@ -27,9 +27,9 @@ jspec = importlib.import_module("repro.experiments.spec")
 
 torch.set_num_threads(2)
 
-# the reference's spec fields the port has no counterpart for (kernel
-# dispatch and the sanitizer: by device, no knob)
-JAX_ONLY_ENGINE = ("kernel_backend", "sanitize")
+# the reference's spec field the port has no counterpart for (kernel
+# dispatch: by device, no knob; "auto" loads and is dropped)
+JAX_ONLY_ENGINE = ("kernel_backend",)
 
 
 def _jax_dict(spec):
