@@ -195,17 +195,25 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              the same card tensors, at every shape the paths launched it
              with and at extra cases, with the tolerance stated below
              (signed-zero stacks at n = 5, 25, 64 compared by sign;
-             ``nova_aggregate`` and its stacked form at 12,289 and 20,000
-             DPUs); then each is timed with CUDA events (median of 30
-             launches, L2 flushed before each) beside its plain version,
-             its bound and a one-call PyTorch yardstick where one exists;
-             ``robust_aggregate``'s network and radix select are timed
-             against each other at n = 33-100 (the crossover),
-             and ``swa_decode_attention`` must show one kernel per call.
+             ``nova_aggregate`` and its stacked form at 1, 64 and 100
+             DPUs, whose copies wrap the kernel's ring inside a tile, and
+             at 12,289 and 20,000; every stacked row bit for bit equal to
+             the one-plane kernel); then each is timed with CUDA events
+             (median of 30 launches, L2 flushed before each) beside its
+             plain version, its bound and a one-call PyTorch yardstick
+             where one exists; ``nova_aggregate``'s launch plan is timed
+             against its neighbours (another tile, other bytes in flight,
+             other blocks an SM); ``robust_aggregate``'s network and
+             radix select are timed against each other at n = 33-100 (the
+             crossover), and ``swa_decode_attention`` must show one
+             kernel per call.
              The kernels line reports the largest group the paths
              launched.  Each kernel's main row is timed a second way, as
              a run of 200 launches between one event pair (``RunTimer``),
-             beside an empty kernel under both timers.
+             beside an empty kernel under both timers (so is
+             ``nova_aggregate`` at (25, 176) bf16 and (5, 176), and the
+             stacked form at whisper-medium's plane); every timed row is
+             printed again above that floor, beside its bound.
 5. check   — one fused round and one mesh round at paper width on the card
              against the same staged round on the CPU (plain versions),
              to the stated tolerance; starcoder2-15b at full width with 2
@@ -383,11 +391,17 @@ class RunTimer:
         return statistics.median(per)
 
 
-def run_column(dev, main_rows, timer, run_timer):
+# nova_aggregate's rows beside its main row that also take the run-of-200
+# column: (n, R, dtype)
+NOVA_RUN_ROWS = [(25, 176, "bfloat16"), (5, 176, "float32")]
+
+
+def run_column(dev, main_rows, timer, run_timer, rows=()):
     """The second time column of the kernels' main rows (``RunTimer``), at
-    each row's shape on fresh random inputs, and the floor of both timers:
-    an empty kernel (``torch.cuda._sleep(0)``) under each.  Returns
-    {kernel: ms per launch} and the floors."""
+    each row's shape on fresh random inputs, and of the ``NOVA_RUN_ROWS``
+    rows of ``rows`` (set as their ``run_ms``), and the floor of both
+    timers: an empty kernel (``torch.cuda._sleep(0)``) under each.
+    Returns {kernel: ms per launch} and the floors."""
     from repro_torch.kernels import fedprox_update as kfp
     from repro_torch.kernels import nova_aggregate as kna
     from repro_torch.kernels import robust_aggregate as kra
@@ -421,6 +435,17 @@ def run_column(dev, main_rows, timer, run_timer):
             lambda x, d, fn=fn, w=w: fn(x, d, w, 0.2),
             lambda xs=xs, n=n, R=R: (randn(xs), randn((n, R, LANE))),
             r["bytes"])
+    for r in rows:
+        if r["kernel"] == "nova_aggregate" and "ms" in r and (
+                r["G"], r["R"], r["dtype"]) in NOVA_RUN_ROWS:
+            n, R, dt = r["G"], r["R"], getattr(torch, r["dtype"])
+            w = torch.rand(n, generator=gen, device=dev) + 0.1
+            w = w / w.sum()
+            r["run_ms"] = run_timer(
+                lambda x, d, w=w: kna.nova_aggregate(x, d, w, 0.2),
+                lambda n=n, R=R, dt=dt: (randn((R, LANE), dt),
+                                         randn((n, R, LANE), dt)),
+                r["bytes"])
     r = main_rows["robust_aggregate"]
     n, R, k, med = r["G"], r["R"], r["k"], r["mode"] == "median"
     te = -1.0 if r["form"] == "fedavg" else 0.2
@@ -450,6 +475,29 @@ def run_column(dev, main_rows, timer, run_timer):
     log(f"  empty kernel: per call {floor['empty_kernel_ms'] * 1e3:.2f} us,"
         f" run of 200 {floor['empty_kernel_run_ms'] * 1e3:.2f} us")
     return out, floor
+
+
+def above_floor(rows, floor):
+    """Each timed row's time above the empty kernel, per call and (where
+    the row has a run-of-200 time) per launch, beside its bound: derived
+    from the two timers' readings, which it leaves as they are.  Logs one
+    line a row and returns them as (kernel, G/n, R, dtype, form, ms
+    above, run ms above or None, bound ms)."""
+    out = []
+    for r in rows:
+        if "ms" not in r:
+            continue
+        run = r.get("run_ms")
+        out.append((r["kernel"], r["G"], r["R"], r["dtype"], r["anchor"],
+                    r["ms"] - floor["empty_kernel_ms"],
+                    None if run is None
+                    else run - floor["empty_kernel_run_ms"], r["bound_ms"]))
+    for name, G, R, dt, anchor, ms, run, bound in out:
+        log(f"    {name:<22} G/n={G:<5} R={R:<6} {dt:<8} {anchor:<16} "
+            f"above floor: per call {ms * 1e3:8.2f} us, run of 200 "
+            + ("       -" if run is None else f"{run * 1e3:8.2f}")
+            + f" us; bound {bound * 1e3:8.2f} us")
+    return out
 
 
 # -------------------------------------------------------- tolerance -----
@@ -559,8 +607,9 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
         rows.append(row)
         log(f"  {_fmt(row)}")
 
-    # nova_aggregate: the path's (n, R), then n in {5, 25} DPUs at R = 176,
-    # f32 and bf16, plus the edge rows, and n = 12,289 and 20,000 at R = 8
+    # nova_aggregate: the path's (n, R), then n in {1, 5, 25, 64, 100} DPUs
+    # at R = 176, f32 and bf16, plus the edge rows, and n = 12,289 and
+    # 20,000 at R = 8
     # (0.4 and 0.65 GB of d).  Tolerance: two f32 ulps of the
     # largest x plus theta*eta * n ulps of the largest d (the kernel sums
     # the n terms in order with FMAs, the plain einsum in cuBLAS's order).
@@ -569,6 +618,10 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
     cases += [(n, 176, dt, 0) for n in (5, 25)
               for dt in (f32, torch.bfloat16)]
     cases += [(5, R, dt, 0) for R in (24, 40)
+              for dt in (f32, torch.bfloat16)]
+    # one DPU, and 64 and 100 DPUs, whose copies wrap the kernel's ring
+    # inside a tile
+    cases += [(n, 176, dt, 0) for n in (1, 64, 100)
               for dt in (f32, torch.bfloat16)]
     # past 12,288 DPUs, the count whose weights once filled the kernel's
     # shared memory: the weights now pass through it in chunks
@@ -617,12 +670,13 @@ def kernel_checks(dev, timer, bw, f32_rate, path_shapes):
 def stacked_checks(dev, timer, bw, f32_rate, path):
     """``nova_aggregate_stacked`` against its plain version at every (n, R)
     the mesh path launched it with (``path``: {(n, R): launches}, f32,
-    rows of x that differ), and at n in {1, 5, 64} for R = 176 and n = 5
-    for the edge rows 24 and 40, f32 and bf16, and n = 12,289 and 20,000
-    at R = 8 (past the old cap).  Tolerance, as for
+    rows of x that differ), and at n in {1, 5, 64, 100} for R = 176 (64
+    and 100 wrap the kernel's ring inside a tile) and n = 5 for the edge
+    rows 24 and 40, f32 and bf16, and n = 12,289 and 20,000 at R = 8
+    (past the old cap).  Tolerance, as for
     ``nova_aggregate``: two f32 ulps of the largest |x| plus theta_eta * n
-    ulps of the largest |d|.  Each case also says whether row j equals
-    ``nova_aggregate`` (the one-plane kernel) on x[j] bit for bit; those
+    ulps of the largest |d|.  Every row j must equal ``nova_aggregate``
+    (the one-plane kernel) on x[j] bit for bit, or the case fails; those
     comparison launches come after the counted paths.  Every R = 176 case
     is timed, beside the yardstick ``addmm(x, M, d)`` with M = -theta_eta
     * 1 w^T built before the timing."""
@@ -633,7 +687,8 @@ def stacked_checks(dev, timer, bw, f32_rate, path):
     gen = torch.Generator(device=dev).manual_seed(2468)
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(n, R, f32, c) for (n, R), c in sorted(path.items())]
-    cases += [(n, 176, dt, 0) for n in (1, 5, 64) for dt in (f32, bf16)]
+    cases += [(n, 176, dt, 0) for n in (1, 5, 64, 100)
+              for dt in (f32, bf16)]
     cases += [(5, R, dt, 0) for R in (24, 40) for dt in (f32, bf16)]
     cases += [(n, 8, f32, 0) for n in (12289, 20000)]   # past the old cap
     n_main = max(n for n, _ in path)
@@ -646,11 +701,12 @@ def stacked_checks(dev, timer, bw, f32_rate, path):
         theta_eta = 0.1
         k = kna.nova_aggregate_stacked(x, d, w, theta_eta)
         r = ref.nova_aggregate_ref(x, d, w, theta_eta)
-        # row j against the one-plane kernel on x[j] (a sample of rows
-        # past the old cap)
-        js = range(n) if n <= 64 else (0, n // 2, n - 1)
-        one = torch.stack([kna.nova_aggregate(x[j], d, w, theta_eta)
-                           for j in js])
+        # every row j against the one-plane kernel on x[j], by bits
+        idt = torch.int32 if dt == f32 else torch.int16
+        differ = torch.zeros((), dtype=torch.int64, device=dev)
+        for j in range(n):
+            one = kna.nova_aggregate(x[j], d, w, theta_eta)
+            differ += (one.view(idt) != k[j].view(idt)).sum()
         torch.cuda.synchronize()
         atol = 2 * _spacing(x) + theta_eta * n * _spacing(d)
         nbytes = x.element_size() * R * LANE * 3 * n
@@ -658,9 +714,9 @@ def stacked_checks(dev, timer, bw, f32_rate, path):
         row = {"kernel": "nova_aggregate_stacked", "G": n, "R": R,
                "dtype": str(dt).replace("torch.", ""), "anchor": "-",
                "path_launches": on_path, "bytes": nbytes,
-               "rows_equal_nova_aggregate": bool(torch.equal(
-                   k[list(js)], one)),
+               "rows_equal_nova_aggregate": int(differ) == 0,
                **within(k, r, atol)}
+        row["ok"] = row["ok"] and row["rows_equal_nova_aggregate"]
         if R == 176:
             M = (-theta_eta * torch.outer(torch.ones(n, device=dev), w)
                  ).to(dt)
@@ -679,6 +735,72 @@ def stacked_checks(dev, timer, bw, f32_rate, path):
         log(f"  {_fmt(row)}  rows == nova_aggregate: "
             f"{row['rows_equal_nova_aggregate']}")
     return rows, main
+
+
+# The plans nova_plan_sweep holds launch_plan's against: launch_plan's
+# keywords, one choice moved at a time.
+NOVA_PLAN_VARIANTS = [
+    ("plan", {}),
+    ("tile 1024", {"tile_elems": 1024}), ("tile 512", {"tile_elems": 512}),
+    ("tile 256", {"tile_elems": 256}),
+    ("in flight 16 KB", {"in_flight": 16 << 10}),
+    ("in flight 64 KB", {"in_flight": 64 << 10}),
+    ("in flight 128 KB", {"in_flight": 128 << 10}),
+    ("2 blocks an SM", {"blocks_per_sm": 2}),
+    ("8 blocks an SM", {"blocks_per_sm": 8}),
+]
+# (n, R, dtype, stacked): the kernels line's shape in f32 and bf16, the
+# stacked form there, and at mamba2-130m's plane
+NOVA_PLAN_SHAPES = [(25, 176, "float32", False), (25, 176, "bfloat16", False),
+                    (25, 176, "float32", True), (2, 126080, "float32", True)]
+
+
+def nova_plan_sweep(dev, timer):
+    """``nova_aggregate``'s launch plan against its neighbours
+    (``NOVA_PLAN_VARIANTS``: another tile, a quarter to four times the
+    bytes in flight, 2 or 8 blocks an SM) at ``NOVA_PLAN_SHAPES``, per
+    call (``Timer``), each launch through the wrapper's ``_launch`` with
+    the variant's plan (no launch counted) and checked equal, bit for bit,
+    to the plan's output (no bit depends on the plan).  Returns {shape:
+    [(variant, plan, ms)]}."""
+    from repro_torch.kernels import nova_aggregate as kna
+    from repro_torch.kernels.plane import LANE
+
+    gen = torch.Generator(device=dev).manual_seed(97)
+    sms = kna.sm_count(dev)
+    out = {}
+    for n, R, dt, stacked in NOVA_PLAN_SHAPES:
+        dtype = getattr(torch, dt)
+        x = torch.randn((n, R, LANE) if stacked else (R, LANE),
+                        generator=gen, device=dev).to(dtype)
+        d = torch.randn((n, R, LANE), generator=gen, device=dev).to(dtype)
+        w = torch.rand(n, generator=gen, device=dev) + 0.1
+        w = w / w.sum()
+        reps = n if stacked else 1
+        want = kna._launch(x, d, w, 0.2, n, reps)
+        rows, seen = [], set()
+        for label, kw in NOVA_PLAN_VARIANTS:
+            plan = kna.launch_plan(n, reps, R, x.element_size(), sms, **kw)
+            if plan in seen:
+                continue
+            seen.add(plan)
+            got = kna._launch(x, d, w, 0.2, n, reps, plan)
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError(f"nova_aggregate plan {plan} changed "
+                                     f"bits at {(n, R, dt, stacked)}")
+            ms = timer(lambda plan=plan: kna._launch(x, d, w, 0.2, n, reps,
+                                                     plan))
+            rows.append((label, tuple(plan), ms))
+        key = f"n={n} R={R} {dt}" + (" stacked" if stacked else "")
+        best = min(ms for _, _, ms in rows)
+        log(f"  {key}: " + "; ".join(
+            f"{label} {plan[:3]} {ms * 1e3:.2f} us"
+            + (" (fastest)" if ms == best else "")
+            for label, plan, ms in rows))
+        out[key] = rows
+        del x, d, want, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def update_checks(dev, timer, bw, f32_rate, path):
@@ -3106,7 +3228,8 @@ def _row_chunks(R: int, rows: int = 1 << 16):
     return [slice(r, min(r + rows, R)) for r in range(0, R, rows)]
 
 
-def lm_kernel_checks(dev, timer, run_timer, bw, f32_rate, shapes):
+def lm_kernel_checks(dev, timer, run_timer, bw, f32_rate, shapes,
+                     run_kernels=("fedprox_accum", "nova_aggregate_stacked")):
     """Phase 9 (e) and phase 10's rows of phase 4: ``fedprox_accum``
     (per-DPU anchor) and ``nova_aggregate_stacked`` against their plain
     versions (chunk by chunk, ``_row_chunks``) at every shape the phase
@@ -3115,9 +3238,10 @@ def lm_kernel_checks(dev, timer, run_timer, bw, f32_rate, shapes):
     largest operand; two of the largest |x| plus theta_eta * n of the
     largest |d|).  Each is timed per call (``Timer``) beside its plain
     version, its byte bound and, for the stacked form, ``addmm``; the
-    largest also as a run of 200 launches (``run_timer``, a ``RunTimer``;
-    None leaves that out: at whisper-medium's plane its two copies of the
-    inputs would take 50 GB).  Returns the rows."""
+    largest also as a run of 200 launches (``run_timer``, a ``RunTimer``,
+    for the kernels of ``run_kernels``; None leaves that out: at
+    whisper-medium's plane the two copies of ``fedprox_accum``'s inputs
+    would take 50 GB, of the stacked form's 25 GB).  Returns the rows."""
     from repro_torch.kernels import fedprox_update as kfp
     from repro_torch.kernels import nova_aggregate as kna
     from repro_torch.kernels import ref
@@ -3156,7 +3280,8 @@ def lm_kernel_checks(dev, timer, run_timer, bw, f32_rate, shapes):
         row["bound_ms"] = max(nbytes / bw, 7 * G * R * LANE / f32_rate) * 1e3
         row["bound_by"] = "bytes"
         del x, g, acc, anchor, args
-        if R == R_max and run_timer is not None:
+        if R == R_max and run_timer is not None \
+                and "fedprox_accum" in run_kernels:
             row["run_ms"] = run_timer(
                 lambda x, g, a, acc: kfp.fedprox_accum(
                     x, g, a, acc, coef, active, 3e-2, 0.01),
@@ -3193,7 +3318,8 @@ def lm_kernel_checks(dev, timer, run_timer, bw, f32_rate, shapes):
         row["bound_ms"] = max(nbytes / bw, 4 * n * R * LANE / f32_rate) * 1e3
         row["bound_by"] = "bytes"
         del x, d
-        if R == R_max and run_timer is not None:
+        if R == R_max and run_timer is not None \
+                and "nova_aggregate_stacked" in run_kernels:
             row["run_ms"] = run_timer(
                 lambda x, d: kna.nova_aggregate_stacked(x, d, w, theta_eta),
                 lambda: (randn((n, R, LANE)), randn((n, R, LANE))), nbytes)
@@ -4267,17 +4393,22 @@ def main() -> int:
     s_rows, main_rows["nova_aggregate_stacked"] = stacked_checks(
         dev, timer, bw, f32_rate, m_shapes["nova_aggregate_stacked"]
         + e_shapes["nova_aggregate_stacked"])
+    log("  nova_aggregate's launch plan against its neighbours (tile, "
+        "bytes in flight, blocks an SM), per call")
+    plan_sweep = nova_plan_sweep(dev, timer)
     u_rows, main_rows["fedprox_update"] = update_checks(
         dev, timer, bw, f32_rate, a_shapes["fedprox_update"])
     w_rows, main_rows["swa_decode_attention"] = swa_checks(
         dev, timer, bw, f32_rate, bf16_rate, s_shapes)
     log("  phase 10's path shapes: swa_decode_attention (its configs' "
         "heads), fedprox_accum and nova_aggregate_stacked (whisper-medium's "
-        "plane and the reduced rounds)")
+        "plane and the reduced rounds; the stacked form at whisper's plane "
+        "also as a run of 200)")
     x_rows = swa_checks(dev, timer, bw, f32_rate, bf16_rate, None,
                         cases=x_swa.cases())[0]
-    x_rows += lm_kernel_checks(dev, timer, None, bw, f32_rate,
-                               x_shapes.shapes)
+    x_rows += lm_kernel_checks(dev, timer, RunTimer(), bw, f32_rate,
+                               x_shapes.shapes,
+                               run_kernels=("nova_aggregate_stacked",))
     log("  phase 12's path shapes: swa_decode_attention at codeqwen1.5-7b's"
         " f32 decode (Hq = Hkv = 32, D 128, G 1), both timers and SDPA; "
         "fedprox_accum and nova_aggregate_stacked at train_lm_cefl's plane "
@@ -4296,8 +4427,14 @@ def main() -> int:
     log("  the main rows timed again as runs of 200 launches between one "
         "event pair (inputs rotated over copies past 2 x L2), beside the "
         "per-call timer's floor")
-    run_ms, floor = run_column(dev, main_rows, timer, RunTimer())
+    run_ms, floor = run_column(dev, main_rows, timer, RunTimer(), rows)
     del timer
+    for name, r in main_rows.items():
+        r.setdefault("run_ms", run_ms[name])
+    log("  every timed row above the empty kernel (per call, and per launch "
+        "in a run of 200 where the row has one) beside its bound; phase 9's"
+        " rows at the end")
+    floor_rows = above_floor(rows + l_records["kernel_rows"], floor)
 
     log("phase 5: one fused round and one mesh round, card vs CPU; "
         "starcoder2-15b at full width, 2 layers, f32, card vs CPU")
@@ -4345,6 +4482,7 @@ def main() -> int:
                                 for key, n in sorted(s_shapes.items())],
         "serve_check_max_abs_err": serve_err,
         "kernel_run_ms": run_ms, "timer_floor": floor,
+        "above_floor": floor_rows, "nova_plan_sweep": plan_sweep,
         "cefl_rounds": c_records, "cefl_launches": c_launches,
         "cefl_launch_shapes": {k: [list(key) + [n] for key, n in c.items()]
                                for k, c in c_shapes.items()},
