@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import aggregation, fedprox
 from repro_torch.core import strategies as _strategies  # noqa: F401  (registers)
 from repro_torch.core.api import (DecisionContext, EngineOptions,
@@ -675,7 +676,8 @@ class StagedRound:
     datasets: list                 # ue_data + dc_data, one entry per DPU
     n_dc: int
     events: object
-    t0: float
+    t0: float = 0.0                # time.perf_counter() at begin_round
+    span: object = None            # the open engine.round span's token
     # --- per-round client sampling (EngineOptions.cohort_size) ---
     cohort: Optional[np.ndarray] = None   # sorted drawn UE indices, or None
     sub_net: object = None                # topology.subnetwork view
@@ -791,12 +793,24 @@ class Engine:
     def begin_round(self, state: LoopState, online_datasets) -> StagedRound:
         """Host side of round ``state.t``: scenario tick, cohort draw,
         plan decision, offloading realization.  Mutates ``state`` (rng,
-        plan)."""
+        plan).  Opens the round's ``engine.round`` span, which
+        :meth:`finish_round` closes."""
+        t0 = time.perf_counter()
+        token = tracing.begin("engine.round", round=state.t)
+        try:
+            staged = self._begin_round(state, online_datasets)
+        except BaseException:
+            tracing.end(token)
+            raise
+        staged.t0, staged.span = t0, token
+        return staged
+
+    def _begin_round(self, state: LoopState, online_datasets) -> StagedRound:
         opts = self.opts
         t = state.t
-        t0 = time.time()
-        net_t, data_per_ue, events = self.scenario.step(
-            t, online_datasets, state.rng)
+        with tracing.span("scenario.step"):
+            net_t, data_per_ue, events = self.scenario.step(
+                t, online_datasets, state.rng)
         N = len(data_per_ue)
         cohort = sub_net = sub_plan = None
         if opts.cohort_size is not None and opts.cohort_size < N:
@@ -835,11 +849,12 @@ class Engine:
                     state.plan.validate(net_t)
         elif cohort is not None:
             sub_plan = _gather_plan(state.plan, cohort, N)
-        ue_data, dc_data = realize_offloading(state.rng, data_per_ue,
-                                              state.plan, net_t)
+        with tracing.span("engine.offload"):
+            ue_data, dc_data = realize_offloading(state.rng, data_per_ue,
+                                                  state.plan, net_t)
         return StagedRound(t=t, net_t=net_t, D_bar=D_bar, plan=state.plan,
                            datasets=ue_data + dc_data, n_dc=len(dc_data),
-                           events=events, t0=t0, cohort=cohort,
+                           events=events, cohort=cohort,
                            sub_net=sub_net, sub_plan=sub_plan)
 
     def should_eval(self, t: int) -> bool:
@@ -867,7 +882,8 @@ class Engine:
                      mean_loss: float, acc: Optional[float] = None) -> \
             RoundReport:
         """Account the finished round: costs, eval (per the cadence),
-        report, callbacks.  Advances ``state.t``."""
+        report, callbacks.  Closes the round's ``engine.round`` span and
+        advances ``state.t``."""
         plan = staged.plan
         scale = tuple(staged.events.compute_scale)
         if staged.cohort is not None:
@@ -902,6 +918,8 @@ class Engine:
         state.last_acc = float(acc)
         gammas, ms = _plan_settings(plan)
         dc_data = staged.datasets[len(staged.datasets) - staged.n_dc:]
+        wall = time.perf_counter() - staged.t0
+        tracing.end(staged.span)
         report = RoundReport(
             round=staged.t, acc=float(acc), loss=mean_loss,
             energy=E, delay=Dl, cum_energy=state.cum_E,
@@ -910,7 +928,7 @@ class Engine:
             dc_points=tuple(0 if d is None else len(d["y"])
                             for d in dc_data),
             gamma_mean=float(gammas.mean()), m_mean=float(ms.mean()),
-            plan=plan, wall_time=time.time() - staged.t0,
+            plan=plan, wall_time=wall,
             handovers=tuple(staged.events.handovers),
             aggregator_moved=(state.prev_agg is not None
                               and plan.aggregator != state.prev_agg),

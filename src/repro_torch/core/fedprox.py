@@ -39,6 +39,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import ops
 from repro_torch.kernels.plane import ParamPlane, as_plane
 
@@ -133,20 +134,22 @@ def _plane_train_core(loss_fn: Callable, spec, rows=None):
         p = p_stack
         acc = torch.zeros_like(p_stack)
         losses = []
-        for k in range(idx.shape[0]):
-            batch_k = {name: xd[dpus, idx[k]]
-                       for name, xd in data_stack.items()}
-            full = p if rows is None else rows.full(p)
-            leaf = full.detach().requires_grad_(True)
-            with torch.enable_grad():
-                loss_k = loss_fn(spec.unflatten_batched(leaf), batch_k,
-                                 weights[k])
-                (g,) = torch.autograd.grad(loss_k.sum(), leaf)
-            if rows is not None:
-                g = rows.own(g)
-            p, acc = ops.fedprox_accum_plane(
-                p, g.contiguous(), anchor, acc, a[k] * ones, ones, eta, mu)
-            losses.append(loss_k.detach())
+        with tracing.span("executor.train"):
+            for k in range(idx.shape[0]):
+                batch_k = {name: xd[dpus, idx[k]]
+                           for name, xd in data_stack.items()}
+                full = p if rows is None else rows.full(p)
+                leaf = full.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    loss_k = loss_fn(spec.unflatten_batched(leaf), batch_k,
+                                     weights[k])
+                    (g,) = torch.autograd.grad(loss_k.sum(), leaf)
+                if rows is not None:
+                    g = rows.own(g)
+                p, acc = ops.fedprox_accum_plane(
+                    p, g.contiguous(), anchor, acc, a[k] * ones, ones, eta,
+                    mu)
+                losses.append(loss_k.detach())
         return p, acc, torch.stack(losses)
 
     return run
@@ -187,17 +190,23 @@ def _plane_round_fn(loss_fn: Callable, spec, eval_fn=None):
 
 def _stack_data(datasets, Ds, device) -> dict:
     """A group's round data copied into one zero-padded ``(G, Db, ...)``
-    stack per field on ``device`` (Db a power of two)."""
+    stack per field on ``device`` (Db a power of two).  Counts the bytes
+    of the host arrays copied as ``h2d_bytes`` (tracing)."""
     G = len(datasets)
     Db = _bucket(max(Ds))
     data_stack = {}
+    nbytes = 0
     for name in datasets[0]:
         first = torch.as_tensor(datasets[0][name])
         stack = torch.zeros((G, Db) + tuple(first.shape[1:]),
                             dtype=first.dtype, device=device)
         for j, d in enumerate(datasets):
-            stack[j, :Ds[j]].copy_(torch.as_tensor(d[name]))
+            src = torch.as_tensor(d[name])
+            if src.device.type == "cpu":
+                nbytes += src.nbytes
+            stack[j, :Ds[j]].copy_(src)
         data_stack[name] = stack
+    tracing.count("h2d_bytes", nbytes)
     return data_stack
 
 
@@ -221,9 +230,11 @@ def _stage_group_batches(datasets, generator, Ds, bucket, gamma, m_frac,
                          device):
     """Stage a group's round data on ``device``: the zero-padded data
     stack (:func:`_stack_data`) and the mini-batch index/weight arrays
-    (:func:`_draw_indices`)."""
-    idx, wts = _draw_indices(generator, Ds, bucket, gamma, m_frac, device)
-    return _stack_data(datasets, Ds, device), idx, wts
+    (:func:`_draw_indices`).  Traced as ``executor.stage``."""
+    with tracing.span("executor.stage"):
+        idx, wts = _draw_indices(generator, Ds, bucket, gamma, m_frac,
+                                 device)
+        return _stack_data(datasets, Ds, device), idx, wts
 
 
 def _group_layout(datasets, m_frac):

@@ -36,10 +36,12 @@ two packages agree to f32 rounding.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import require_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.plane import (ParamPlane, tree_from_paths,
@@ -114,6 +116,7 @@ def build_cefl_round_step(loss_fn: Callable, hyper: CEFLHyper):
     gamma_max, n_micro = hyper.gamma_max, hyper.n_micro
     acc_dt = getattr(torch, hyper.grad_dtype)
     inv = 1.0 / n_micro
+    calls = itertools.count()      # the round id of a traced plane step
 
     def micro_batches(batch):
         return [{name: x[:, j] for name, x in batch.items()}
@@ -122,7 +125,12 @@ def build_cefl_round_step(loss_fn: Callable, hyper: CEFLHyper):
     def round_step_plane(plane: ParamPlane, batch, meta):
         """Per local step: one forward pass over the (n, mb) stack, one
         autograd.grad, one fedprox_accum launch; then d = acc / ||a||_1
-        and one nova_aggregate_stacked launch."""
+        and one nova_aggregate_stacked launch.  Traced as ``round_step``
+        with ``round_step.forward`` / ``round_step.backward`` spans."""
+        with tracing.span("round_step", round=next(calls)):
+            return _round_step_plane(plane, batch, meta)
+
+    def _round_step_plane(plane: ParamPlane, batch, meta):
         spec = plane.spec
         p0 = plane.data                        # (n, R, LANE), contiguous
         gamma = meta["gamma"]
@@ -139,9 +147,12 @@ def build_cefl_round_step(loss_fn: Callable, hyper: CEFLHyper):
             for micro in micros:
                 leaf = p.detach().requires_grad_(True)
                 with torch.enable_grad():
-                    losses = loss_fn(spec.unflatten_batched(leaf), micro,
-                                     mask)
-                    (gp,) = torch.autograd.grad(losses.sum(), leaf)
+                    with tracing.span("round_step.forward"):
+                        losses = loss_fn(spec.unflatten_batched(leaf),
+                                         micro, mask)
+                    total = losses.sum()
+                    with tracing.span("round_step.backward"):
+                        (gp,) = torch.autograd.grad(total, leaf)
                 loss_s = loss_s + losses.detach()
                 g_acc = g_acc + gp
             return loss_s * inv, g_acc * inv

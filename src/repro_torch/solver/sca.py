@@ -19,6 +19,7 @@ from typing import TYPE_CHECKING, Dict, List, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.network.costs import as_f32, network_costs
 from repro_torch.solver import constraints as K
 from repro_torch.solver import variables as V
@@ -107,7 +108,12 @@ def solve(net, D_bar, consts: MLConstants, ow: ObjectiveWeights,
           backend: str = "jit") -> SCAResult:
     """Solve problem P at the current network state, on ``D_bar``'s
     device.  ``backend``: only ``"jit"``, the name of the reference's
-    batched solver that this one ports."""
+    batched solver that this one ports.
+
+    Traced as ``sca.solve``, counting ``pd_live`` (the primal-dual
+    iterations that moved the duals) against ``pd_run`` (those run, the
+    frozen ones too), with an ``sca.outer`` span for each outer step's
+    enqueue and an ``sca.sync`` span for each host read."""
     del seed
     if backend == "ref":
         raise ValueError(
@@ -118,6 +124,16 @@ def solve(net, D_bar, consts: MLConstants, ow: ObjectiveWeights,
         raise ValueError(f"unknown solver backend {backend!r} "
                          "(expected 'jit')")
     pd = pd or PDHyper()
+    with tracing.span("sca.solve"):
+        res = _solve(net, D_bar, consts, ow, zeta=zeta, max_outer=max_outer,
+                     tol=tol, pd=pd, distributed=distributed, w0=w0)
+        tracing.count("pd_live", sum(res.pd_iterations))
+        tracing.count("pd_run", res.iterations * pd.max_iters)
+    return res
+
+
+def _solve(net, D_bar, consts, ow, *, zeta, max_outer, tol, pd, distributed,
+           w0) -> SCAResult:
     nv, D, c = _on_device(net, D_bar, consts)
     dev = D.device
     spec = V.WSpec(nv.dims)
@@ -136,15 +152,21 @@ def solve(net, D_bar, consts: MLConstants, ow: ObjectiveWeights,
     w = spec.flatten(w_phys) / scale_flat
 
     step = _outer_step(spec, pd, ow, _consts_scalars(c), distributed, zeta)
-    hist = [float(objective(w_phys, nv, D, c, ow))]
+    obj0 = objective(w_phys, nv, D, c, ow)
+    with tracing.span("sca.sync"):
+        hist = [float(obj0)]
     viol, pd_iters = [], []
     ell = 0
     for ell in range(max_outer):
-        w, Lambda, obj, max_viol, its = step(w, Lambda, nv, D, c,
-                                             scale_flat, W_cons)
-        obj = float(obj)
-        viol.append(float(max_viol))
-        pd_iters.append(int(its))
+        with tracing.span("sca.outer"):
+            w, Lambda, obj, max_viol, its = step(w, Lambda, nv, D, c,
+                                                 scale_flat, W_cons)
+        with tracing.span("sca.sync"):
+            obj = float(obj)
+        with tracing.span("sca.sync"):
+            viol.append(float(max_viol))
+        with tracing.span("sca.sync"):
+            pd_iters.append(int(its))
         improved = hist[-1] - obj
         hist.append(obj)
         if 0 <= improved < tol * max(1.0, abs(hist[0])):
