@@ -12,6 +12,7 @@ solver runs wherever its inputs live.  Numpy inputs (the engine's
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Dict
 
@@ -94,8 +95,21 @@ def ownership_matrix(dims) -> np.ndarray:
     return M
 
 
-def _owner(dims, device) -> torch.Tensor:
-    return torch.as_tensor(owner_index(dims), device=device)
+@functools.lru_cache(maxsize=16)
+def _owner_tensors(dims, device):
+    own = owner_index(dims)
+    return (torch.as_tensor(own, device=device),
+            torch.as_tensor(np.maximum(own, 0), device=device),
+            torch.as_tensor((own >= 0).astype(np.float32), device=device))
+
+
+def owner_tensors(dims, device):
+    """(owner, segment, single) on ``device``: :func:`owner_index`, its ids
+    with the co-owned entries sent to row 0, and the float32 mask of the
+    single-owner entries.  Built once per (dims, device) and shared, never
+    written: made inside a solver step, each would be a synchronous
+    host-to-device copy, which a CUDA graph cannot capture."""
+    return _owner_tensors(tuple(int(d) for d in dims), torch.device(device))
 
 
 def ownership_merge(cands, dims):
@@ -104,7 +118,7 @@ def ownership_merge(cands, dims):
     candidate row; the DC-co-owned delta entries take the mean over the
     DC rows."""
     N, B, S = dims
-    own = _owner(dims, cands.device)
+    own = owner_tensors(dims, cands.device)[0]
     gathered = cands[torch.clamp(own, min=0),
                      torch.arange(own.shape[0], device=cands.device)]
     dc_mean = torch.mean(cands[N + B:], dim=0)
@@ -115,7 +129,7 @@ def owner_mask(v, dims):
     """Row ``v`` of :func:`ownership_matrix` (``v`` a 0-dim tensor, so the
     mask can be built under ``torch.func.vmap`` over node ids)."""
     N, B, S = dims
-    own = _owner(dims, v.device)
+    own = owner_tensors(dims, v.device)[0]
     co_owned = (own < 0) & (v >= N + B)
     one = torch.ones((), device=v.device)
     return torch.where(own == v, one,
@@ -127,9 +141,7 @@ def node_sq_norms(d, dims):
     one ``index_add`` over the flat owner index.  The co-owned delta
     entries contribute ``(d/S)^2`` to every DC row."""
     N, B, S = dims
-    own = owner_index(dims)
-    seg = torch.as_tensor(np.maximum(own, 0), device=d.device)
-    single = torch.as_tensor((own >= 0).astype(np.float32), device=d.device)
+    _, seg, single = owner_tensors(dims, d.device)
     sq = torch.zeros(N + B + S, device=d.device).index_add(
         0, seg, single * d * d)
     delta_sq = torch.sum((1.0 - single) * d * d) / (S * S)
