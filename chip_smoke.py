@@ -218,6 +218,18 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              against the same staged round on the CPU (plain versions),
              to the stated tolerance; starcoder2-15b at full width with 2
              layers in f32, prefill and 8 decode steps, card against CPU.
+13. nano   — (runs before 4) the drop-free MoE's grouped kernels
+             (``csrc/grouped_mm.cu``) at the Nemotron-H cell's expert
+             layer: 8,192 tokens, d 2,688, 16 held of 128 relu² experts of
+             1,856, top-6.  One forward and backward of
+             ``moe.dropless_forward`` under sync debug mode "error", the
+             kernels' launches counted from 0 (4 products, 2 weight
+             gradients); each product at the layer's routing against the
+             plain version on the CPU and the up kernel's count of rows
+             written against the held pairs; each timed beside its bound
+             (2·P·K·N at the f32 FMA rate), the plain loop on the card
+             and ``torch.bmm`` over equal segments.
+             ``python3 chip_smoke.py --phase 13`` runs it alone.
 
 Its last lines: the card's ``name, power.limit`` as nvidia-smi prints
 them, one JSON line with every kernel's numbers, and the result line
@@ -4255,6 +4267,219 @@ def drive_examples_phase(dev):
 
 # ---------------------------------------------------------------- main --
 
+# ------------------------------------ phase 13: the drop-free MoE --
+
+# the Nemotron-H cell's expert layer: 8,192 tokens (one DPU step of
+# nemotron3_nano_30b_a3b.b4s4k), d 2,688, 128 relu² experts of 1,856,
+# top-6, this card holding experts 0-15
+P13 = dict(T=8192, d=2688, f=1856, E=128, held=16, k=6, scale=2.5)
+# the grouped kernels' launches in one forward and backward of the layer:
+# up and down products, their input gradients, their weight gradients
+P13_LAUNCHES = {"grouped_mm": 4, "grouped_mm_wgrad": 2}
+# |card - plain| <= P13_RTOL x the largest |plain| of the case: float32
+# sums of up to 2,688 products in another order
+P13_RTOL = 2e-5
+
+
+def drive_nano_phase(dev, timer, f32_rate):
+    """Phase 13: the drop-free expert layer (``models/moe.dropless_forward``)
+    at the Nemotron-H cell's shapes.  (a) One forward and backward of the
+    layer under ``torch.cuda.set_sync_debug_mode("error")`` (no host read
+    inside it), the grouped kernels' launches counted from 0 and held to
+    ``P13_LAUNCHES``.  (b) Each product the layer launches, at the layer's
+    own routing, against the plain version on the CPU: the up product
+    (row gather), the down product, the down product's input gradient and
+    both weight gradients, to ``P13_RTOL`` of the largest value; the up
+    kernel's own count of rows written against the routing's held pairs.
+    (c) Each timed per call (``Timer``, L2 flushed; the launch alone, its
+    output allocated once) beside its bound 2·P·K·N at the f32 FMA rate,
+    the plain loop on the card and ``torch.bmm`` over equal segments.
+    Returns (kernel rows, record)."""
+    import ctypes
+    import warnings
+
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import grouped_mm as gmm
+    from repro_torch.models import moe
+
+    t_phase = time.perf_counter()
+    built = cuda.build(["grouped_mm"])
+    secs, out = built["grouped_mm"]
+    (OUT / "build_grouped_mm.log").write_text(out)
+    log(f"  grouped_mm built in {secs:.1f} s")
+    ptxas = ptxas_summary(out)
+    for fn, props in ptxas:
+        log(f"    {fn}: {props}")
+    c = P13
+    m = MoEConfig(num_experts=c["E"], top_k=c["k"], expert_ff=c["f"],
+                  expert_act="relu2", dropless=True,
+                  routed_scale=c["scale"], held_experts=c["held"])
+    gen = torch.Generator(device=dev).manual_seed(13)
+    p = moe.init_moe_params(gen, c["d"], m, torch.float32)
+    for t in p.values():
+        t.requires_grad_(True)
+    x = torch.randn((1, c["T"], c["d"]), generator=gen, device=dev,
+                    requires_grad=True)
+    ct = torch.randn((1, c["T"], c["d"]), generator=gen, device=dev)
+
+    # (a) the layer, built and warmed, then counted under sync debug
+    y = moe.dropless_forward(p, x, m)
+    torch.autograd.grad((y * ct).sum(), [x] + list(p.values()))
+    torch.cuda.synchronize()
+    for name in gmm.LAUNCHES:
+        gmm.LAUNCHES[name] = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = moe.dropless_forward(p, x, m)
+            grads = torch.autograd.grad((y * ct).sum(),
+                                        [x] + list(p.values()))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = dict(gmm.LAUNCHES)
+    log(f"  (a) one forward and backward under sync debug mode 'error': "
+        f"launches {launches}")
+    if launches != P13_LAUNCHES:
+        raise AssertionError(f"phase 13: launches {launches}, expected "
+                             f"{P13_LAUNCHES}")
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("phase 13: a non-finite gradient")
+
+    # (b) the products at the layer's routing, card against the CPU
+    with torch.no_grad():
+        h = x.detach().reshape(c["T"], c["d"])
+        r = moe.dropless_route(p["router"].detach(), h, m)
+        w_in, w_out = p["w_in"].detach(), p["w_out"].detach()
+        act = torch.square(torch.relu(
+            gmm.grouped_mm(h, w_in, r.offsets, r.rows)))
+        P = r.rows.numel()
+        g_out = torch.randn((P, c["d"]), generator=gen, device=dev)
+        g_act = torch.randn((P, c["f"]), generator=gen, device=dev)
+        w_out_t = w_out.transpose(1, 2).contiguous()
+    o = r.offsets.tolist()
+    pairs = o[-1]
+    written = torch.zeros((), dtype=torch.int64, device=dev)
+    gmm.grouped_mm(h, w_in, r.offsets, r.rows, written)
+    counted = int(written)
+    log(f"  (b) {pairs} held pairs of {P} (segments {o}); the up kernel "
+        f"counted {counted} rows written")
+    if counted != pairs or pairs != int(r.held.sum()):
+        raise AssertionError(f"phase 13: {counted} rows written, "
+                             f"{pairs} pairs held, "
+                             f"{int(r.held.sum())} routed")
+    cases = [  # (name, kernel, kind, a, w or g, rows, K, N)
+        ("up", "grouped_mm", "mm", h, w_in, r.rows, c["d"], c["f"]),
+        ("down", "grouped_mm", "mm", act, w_out, None, c["f"], c["d"]),
+        ("down input gradient", "grouped_mm", "mm", g_out, w_out_t, None,
+         c["d"], c["f"]),
+        ("up weight gradient", "grouped_mm_wgrad", "wgrad", h, g_act,
+         r.rows, c["d"], c["f"]),
+        ("down weight gradient", "grouped_mm_wgrad", "wgrad", act, g_out,
+         None, c["f"], c["d"]),
+    ]
+    mm_fn = cuda.entry("grouped_mm", "grouped_mm_f32", gmm._MM_ARGTYPES)
+    wg_fn = cuda.entry("grouped_mm", "grouped_wgrad_f32",
+                       gmm._WGRAD_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    seg = pairs // c["held"]
+    rows_out = []
+    for name, kernel, kind, a, b, rows, K, N in cases:
+        fn = gmm.grouped_mm if kind == "mm" else gmm.grouped_wgrad
+        got = fn(a, b, r.offsets, rows).cpu()
+        want = fn(a.cpu(), b.cpu(), r.offsets.cpu(),
+                  None if rows is None else rows.cpu())
+        chk = within(got, want, P13_RTOL * float(want.abs().max()))
+        rp = rows.data_ptr() if rows is not None else None
+        if kind == "mm":
+            dst = torch.zeros((rows.numel() if rows is not None
+                               else a.shape[0], N), device=dev)
+
+            def launch(a=a, b=b, rp=rp, dst=dst, K=K, N=N):
+                cuda.check("grouped_mm", mm_fn(
+                    a.data_ptr(), rp, b.data_ptr(), dst.data_ptr(),
+                    r.offsets.data_ptr(), None, c["held"], K, N,
+                    dst.shape[0], a.stride(0), b.stride(0), b.stride(1),
+                    stream))
+            ea = torch.randn((c["held"], seg, K), generator=gen, device=dev)
+            eb = torch.randn((c["held"], K, N), generator=gen, device=dev)
+        else:
+            dst = torch.empty((c["held"], K, N), device=dev)
+
+            def launch(a=a, b=b, rp=rp, dst=dst, K=K, N=N):
+                cuda.check("grouped_mm", wg_fn(
+                    a.data_ptr(), rp, b.data_ptr(), dst.data_ptr(),
+                    r.offsets.data_ptr(), c["held"], K, N, a.stride(0),
+                    b.stride(0), stream))
+            ea = torch.randn((c["held"], K, seg), generator=gen, device=dev)
+            eb = torch.randn((c["held"], seg, N), generator=gen, device=dev)
+        ms = timer(launch)
+        plain = gmm.grouped_mm_plain if kind == "mm" \
+            else gmm.grouped_wgrad_plain
+        plain_ms = timer(lambda: plain(a, b, o, rows), iters=5)
+        library_ms = timer(lambda: torch.bmm(ea, eb))
+        bound_ms = 2.0 * pairs * K * N / f32_rate * 1e3
+        row = {"kernel": kernel, "case": name, "pairs": pairs,
+               "experts": c["held"], "K": K, "N": N, **chk, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": "ops",
+               "share_of_bound": bound_ms / ms}
+        rows_out.append(row)
+        log(f"    {name}: err {chk['max_abs_err']:.2e} (tol "
+            f"{chk['tol']:.2e}) {ms:.4f} ms, bound {bound_ms:.4f} "
+            f"({100 * bound_ms / ms:.1f} %), plain {plain_ms:.4f}, "
+            f"bmm over equal segments {library_ms:.4f}")
+        del ea, eb, dst
+    bad = [x for x in rows_out if not x["ok"]]
+    if bad:
+        raise AssertionError(f"phase 13: {len(bad)} grouped case(s) "
+                             f"disagree with the plain version: {bad}")
+    record = {"launches": launches, "pairs": pairs, "segments": o,
+              "rows_written": counted, "ptxas": ptxas, "build_s": secs,
+              "phase_s": time.perf_counter() - t_phase}
+    log(f"  phase 13: {record['phase_s']:.1f} s")
+    return rows_out, record
+
+
+def _nano_kernels(rows, launches):
+    """The kernels line's rows of the two grouped kernels: the up
+    product's row and the up weight gradient's (the layer's first
+    launch of each)."""
+    out = []
+    for name, case in (("grouped_mm", "up"),
+                       ("grouped_mm_wgrad", "up weight gradient")):
+        r = next(x for x in rows if x["case"] == case)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grouped_mm.cu",
+            "replaces": "none (the drop-free MoE's grouped products)",
+            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    return out
+
+
+def main_nano(dev, smi, kind, f32_rate) -> int:
+    """``chip_smoke.py --phase 13``: phase 13 alone."""
+    log("phase 13: the drop-free MoE's grouped kernels at the Nemotron-H "
+        "cell's shapes")
+    rows, record = drive_nano_phase(dev, Timer(dev), f32_rate)
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "phase13.json").write_text(json.dumps(
+        {"card": smi, "kind": kind, "torch": torch.__version__,
+         "phase13": record, "phase13_kernel_rows": rows}, indent=1,
+        default=str))
+    print(smi)
+    print(json.dumps({"kernels": _nano_kernels(rows, record["launches"])}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4275,6 +4500,10 @@ def main() -> int:
         f"{torch.version.cuda}; peaks used for bounds: {bw / 1e12:.2f} TB/s,"
         f" {f32_rate / 1e12:.0f} TFLOP/s f32, {bf16_rate / 1e12:.0f} TFLOP/s "
         f"bf16 tensor")
+
+    if sys.argv[1:] == ["--phase", "13"]:
+        OUT.mkdir(parents=True, exist_ok=True)
+        return main_nano(dev, smi, kind, f32_rate)
 
     log("phase 1: build")
     t0 = time.perf_counter()
@@ -4375,6 +4604,11 @@ def main() -> int:
     e_launches, e_swa, e_shapes, e_lm_shapes, e_records = \
         drive_examples_phase(dev)
 
+    log("phase 13: the drop-free MoE's grouped kernels at the Nemotron-H "
+        "cell's shapes")
+    torch.cuda.empty_cache()
+    n_rows, n_record = drive_nano_phase(dev, Timer(dev), f32_rate)
+
     log(f"phase 4: kernels vs plain versions at the paths' shapes and extra "
         f"cases ({smi})")
     timer = Timer(dev)
@@ -4456,6 +4690,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    kernels += _nano_kernels(n_rows, n_record["launches"])
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "result.json").write_text(json.dumps({
         "card": smi, "kind": kind, "torch": torch.__version__,
@@ -4506,6 +4741,7 @@ def main() -> int:
                    for k, c in sh.items()}
             for part, sh in (("cefl_examples", e_shapes),
                              ("train_lm_cefl", e_lm_shapes))},
+        "phase13": n_record, "phase13_kernel_rows": n_rows,
         "seconds": time.perf_counter() - t_start}, indent=1, default=str))
     full, check = l_records["lm_mamba2_130m"], l_records["check"]
     log(f"phase 9 summary: lm_mamba2_130m loss {full['losses'][0]:.4f} -> "

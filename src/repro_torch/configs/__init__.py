@@ -22,6 +22,7 @@ ARCH_IDS = [
     "starcoder2-15b",
     "llama4-maverick-400b-a17b",
     "llama3-405b",
+    "nemotron3-nano-30b-a3b",
 ]
 
 _MODULES = {
@@ -35,6 +36,7 @@ _MODULES = {
     "starcoder2-15b": "starcoder2_15b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "llama3-405b": "llama3_405b",
+    "nemotron3-nano-30b-a3b": "nemotron3_nano_30b_a3b",
     "cefl-paper": "cefl_paper",
 }
 

@@ -28,6 +28,7 @@ from repro_torch.experiments.spec import (ExperimentSpec, ModelSpec,
                                           get_experiment)
 from repro_torch.kernels.plane import ParamPlane, tree_map, tree_unbind
 from repro_torch.models import lm as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.training.checkpoint import save_checkpoint
 
 
@@ -46,7 +47,8 @@ def lm_config(m: ModelSpec) -> ModelConfig:
         raise ValueError(f"seq {m.seq} is not a multiple of {cfg.name}'s "
                          f"SSD chunk {cfg.ssm.chunk_size}")
     tokens = m.batch // (m.n_dpu * m.n_micro) * m.seq
-    if cfg.moe is not None and tokens % min(1024, tokens):
+    if cfg.moe is not None and not cfg.moe.dropless \
+            and tokens % min(1024, tokens):
         raise ValueError(f"a microbatch of {tokens} tokens is not a whole "
                          f"number of {cfg.name}'s 1024-token MoE groups")
     return cfg
@@ -55,7 +57,9 @@ def lm_config(m: ModelSpec) -> ModelConfig:
 def build_lm_step(cfg: ModelConfig, m: ModelSpec, *, eta: float, mu: float):
     """The LM round step: ``lm_loss`` with remat, summed over a per-DPU
     loop (the round step's batched convention: params with a leading DPU
-    axis give ``(n,)`` losses), theta = gamma (tau_eff compensation)."""
+    axis give ``(n,)`` losses), theta = gamma (tau_eff compensation).
+    With a drop-free MoE, a round that tracing records ends with one host
+    read of its routing counts (``models.moe.flush_counts``)."""
     blk = min(512, m.seq)
 
     def loss_fn(p, micro, mask):
@@ -67,7 +71,15 @@ def build_lm_step(cfg: ModelConfig, m: ModelSpec, *, eta: float, mu: float):
 
     hyper = CEFLHyper(eta=eta, mu=mu, theta=float(m.gamma),
                       gamma_max=m.gamma, n_micro=m.n_micro)
-    return MeshExecutor().build_step(loss_fn, hyper)
+    step = MeshExecutor().build_step(loss_fn, hyper)
+    if cfg.moe is None or not cfg.moe.dropless:
+        return step
+
+    def counted_step(params, batch, meta):
+        out = step(params, batch, meta)
+        moe_lib.flush_counts()
+        return out
+    return counted_step
 
 
 def lm_batch(cfg: ModelConfig, m: ModelSpec, seed: int, device) -> dict:

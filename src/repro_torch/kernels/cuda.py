@@ -24,7 +24,10 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# the sources of csrc/, one library each
+# the sources ``build()`` compiles by default, one library each;
+# csrc/grouped_mm.cu (the drop-free MoE's products, counted in
+# ``kernels.grouped_mm.LAUNCHES``) builds on first use, so a run that
+# never launches it does not compile it
 SOURCES = ("fedprox_accum", "nova_aggregate", "robust_aggregate",
            "fedprox_update", "swa_decode_attention")
 # the kernels as the wrappers launch them: nova_aggregate.cu serves both

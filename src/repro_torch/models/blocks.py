@@ -2,7 +2,9 @@
 ``repro.models.blocks``): attention (``"A"``) and Mamba-2 (``"M"``)
 mixers, each followed by a dense MLP or an MoE (with the dense residual
 or shared expert as the layer's ``mlp``), and the encoder-decoder's
-cross-attention.
+cross-attention.  In a pattern with ``"E"`` layers (Nemotron-H) every
+layer is one block x + f(RMSNorm(x)): a Mamba-2 mixer, attention, or an
+MoE with its shared expert, and nothing follows the mixers.
 
 Layers are grouped in "periods": the smallest repeating pattern of layer
 kinds and MoE placement.  Params of one period are a dict ``{"layer_0":
@@ -31,13 +33,15 @@ from repro_torch.models.common import (NO_SHARD, ShardCtx, apply_rope,
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str          # 'A' | 'M'
+    kind: str          # 'A' | 'M' | 'E' (the MoE alone behind ln1)
     use_moe: bool
     has_mlp: bool      # dense MLP present (False for mamba2 pure blocks)
 
 
 def period_spec(cfg: ModelConfig) -> List[LayerSpec]:
     pat = cfg.layer_pattern
+    if "E" in pat:
+        return [LayerSpec(kind, kind == "E", False) for kind in pat]
     moe_n = cfg.moe.every_n_layers if cfg.moe else 1
     plen = int(np.lcm(len(pat), moe_n)) if cfg.moe else len(pat)
     specs = []
@@ -92,9 +96,9 @@ def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
     p = {"ln1": torch.zeros((d,), dtype=dtype, device=gen.device)}
     if spec.kind == "A":
         p["attn"] = init_attn_params(gen, cfg, dtype)
-    else:
+    elif spec.kind == "M":
         p["mamba"] = mamba_lib.init_mamba_params(gen, d, cfg.ssm, dtype)
-    if spec.use_moe or spec.has_mlp:
+    if (spec.use_moe and spec.kind != "E") or spec.has_mlp:
         p["ln2"] = torch.zeros((d,), dtype=dtype, device=gen.device)
     if spec.use_moe:
         p["moe"] = moe_lib.init_moe_params(gen, d, cfg.moe, dtype)
@@ -146,6 +150,8 @@ def mlp_forward(p, x, cfg: ModelConfig):
     if cfg.gated_mlp:
         g = x @ p["w_gate"]
         h = F.silu(g.float()).to(x.dtype) * h
+    elif cfg.mlp_act == "relu2":
+        h = torch.square(F.relu(h))
     else:   # jax.nn.gelu's default: the tanh approximation
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     return h @ p["w_out"]
@@ -203,7 +209,7 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos: int, *, window=None,
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
     q, k = _qk_norm(p, q, k, cfg)
-    if not cfg.is_encdec:
+    if cfg.rope and not cfg.is_encdec:
         angle = rope_frequencies(cfg.head_dim, cfg.rope_theta,
                                  torch.full((1,), pos, device=x.device))
         q = apply_rope(q[:, None], angle)[:, 0]
@@ -255,9 +261,14 @@ def _ffn(params, x, cfg: ModelConfig, spec: LayerSpec, moe_kw):
     an MoE."""
     aux = None
     if spec.use_moe:
-        h = rms_norm(x, params["ln2"], cfg.norm_eps)
-        y, aux = moe_lib.moe_forward(params["moe"], h, cfg.moe, **moe_kw)
-        if "mlp" in params:   # arctic dense residual / llama4 shared expert
+        h = rms_norm(x, params["ln2" if spec.kind != "E" else "ln1"],
+                     cfg.norm_eps)
+        if cfg.moe.dropless:
+            y = moe_lib.dropless_forward(params["moe"], h, cfg.moe)
+        else:
+            y, aux = moe_lib.moe_forward(params["moe"], h, cfg.moe,
+                                         **moe_kw)
+        if "mlp" in params:   # arctic dense residual / shared expert
             y = y + mlp_forward(params["mlp"], h, cfg)
         x = x + y
     elif spec.has_mlp:
@@ -274,6 +285,9 @@ def layer_forward(params, x, cfg: ModelConfig, spec: LayerSpec, *, angles,
     an MoE); (k, v) of an attention layer, else None; the Mamba layer's
     final {"h", "conv"} state with ``return_ssm_state``, else None.
     ``ssm_state`` starts a Mamba layer from a carried state."""
+    if spec.kind == "E":
+        x, aux = _ffn(params, x, cfg, spec, {})
+        return x, aux or _zero_aux(x.device), None, None
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     kv = new_state = None
     if spec.kind == "A":
@@ -296,6 +310,11 @@ def layer_decode(params, x, cfg: ModelConfig, spec: LayerSpec, cache,
     ({"k", "v"} of an attention layer, {"h", "conv"} of a Mamba one).  An
     MoE routes the B tokens drop-free: group_size = capacity = min(1024,
     B).  ``ctx``: :func:`attn_decode`'s."""
+    gs = min(1024, x.shape[0])
+    if spec.kind == "E":
+        x, _ = _ffn(params, x[:, None], cfg, spec,
+                    {"group_size": gs, "capacity": gs})
+        return x[:, 0]
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if spec.kind == "A":
         y = attn_decode(params["attn"], h, cfg, cache, pos, window=window,
@@ -305,7 +324,6 @@ def layer_decode(params, x, cfg: ModelConfig, spec: LayerSpec, cache,
                                              cfg.ssm)
         for k, t in new.items():
             cache[k].copy_(t)
-    gs = min(1024, x.shape[0])
     x, _ = _ffn(params, (x + y)[:, None], cfg, spec,
                 {"group_size": gs, "capacity": gs})
     return x[:, 0]

@@ -115,8 +115,9 @@ def params_to_numpy(tree):
 
 def _angles(cfg: ModelConfig, S: int, device):
     """RoPE angles of positions 0..S-1; None for configs without RoPE
-    (attention-free, or the encoder-decoder's learned positions)."""
-    if cfg.attn_free or cfg.is_encdec:
+    (attention-free, the encoder-decoder's learned positions, or
+    attention without positions, ``cfg.rope`` False)."""
+    if cfg.attn_free or cfg.is_encdec or not cfg.rope:
         return None
     return rope_frequencies(cfg.head_dim, cfg.rope_theta,
                             torch.arange(S, device=device))
@@ -338,6 +339,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
         if spec.kind == "A":
             layer = {"k": torch.zeros(shape, dtype=dtype, device=dev),
                      "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        elif spec.kind == "E":
+            layer = {}
         else:
             st = mamba_lib.init_mamba_state(batch, cfg.d_model, cfg.ssm,
                                             dtype, device=dev)
@@ -430,8 +433,9 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
     states = {}
     for _, name, spec, lp, cp in _walk(params, cfg):
         x, _, kv, st = B.layer_forward(lp, x, cfg, spec, angles=angles,
-                                       return_ssm_state=spec.kind != "A",
+                                       return_ssm_state=spec.kind == "M",
                                        q_block=q_block, kv_block=kv_block)
+        st = st or {}
         if spec.kind == "A":
             k, v = kv
             W = cfg.sliding_window
@@ -442,8 +446,9 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
             x, (xk, xv) = _cross_forward(cp, x, cfg, enc_out, q_block,
                                          kv_block)
             st = {**st, "xk": xk, "xv": xv}
+        layer = states.setdefault(name, {})
         for key, t in st.items():
-            states.setdefault(name, {}).setdefault(key, []).append(t)
+            layer.setdefault(key, []).append(t)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params, cfg, x[:, -1])
     blocks = {name: {key: torch.stack(ts) for key, ts in d.items()}

@@ -3,12 +3,17 @@ Counterpart of ``repro.models.mamba``.
 
 Training and prefill use the chunked dual form: intra-chunk attention-like
 products plus an inter-chunk state recurrence, a loop over the chunks.
-Decode is the O(1) recurrent step.  ngroups = 1 (B/C shared across heads),
-following the 130m config.
+Decode is the O(1) recurrent step.  B and C come in ``n_groups`` groups G
+(1 in the 130m config, 8 in Nemotron-H): head h reads group h * G // H,
+and the gated RMSNorm normalises each group's d_inner / G channels apart
+(mamba_ssm's ``group_size = d_ssm // ngroups``, ``norm_before_gate=False``).
+One code serves every G: at G = 1 it does the ungrouped arithmetic in the
+same order, bit for bit.
 
-Shapes: d_inner = expand * d_model; H = d_inner / head_dim (P); state N.
-State: h (B, H, P, N).  Conv state: (B, conv_width - 1, d_conv) where
-d_conv = d_inner + 2N (the xBC channels), in the activation dtype.
+Shapes: H heads (``SSMConfig.num_heads``, else expand * d_model / P) of
+head_dim P, d_inner = H * P; state N.  State: h (B, H, P, N).  Conv state:
+(B, conv_width - 1, d_conv) where d_conv = d_inner + 2GN (the xBC
+channels), in the activation dtype.
 
 Arithmetic runs in float32 for float32 and bfloat16 activations, as in the
 JAX package, and in float64 for float64 ones (``_acc``), so a float64 run
@@ -31,15 +36,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import SSMConfig
 from repro_torch.device import require_device
 
 
 def mamba_dims(d_model: int, s: SSMConfig):
-    d_inner = s.expand * d_model
-    nheads = d_inner // s.head_dim
-    d_conv = d_inner + 2 * s.state_dim
-    return d_inner, nheads, d_conv
+    """(d_inner, heads, conv channels)."""
+    return s.dims(d_model)
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -60,7 +64,7 @@ def init_mamba_params(gen: torch.Generator, d_model: int, s: SSMConfig,
     differ from ``jax.random``'s; tests carry the JAX parameters across."""
     d_inner, H, d_conv = mamba_dims(d_model, s)
     dev = gen.device
-    d_in_proj = 2 * d_inner + 2 * s.state_dim + H    # z, x, B, C, dt
+    d_in_proj = d_inner + d_conv + H                 # z, x, B, C, dt
     w_in = torch.randn((d_model, d_in_proj), generator=gen, device=dev)
     conv_w = torch.randn((s.conv_width, d_conv), generator=gen, device=dev)
     u = torch.rand((H,), generator=gen, device=dev)
@@ -81,10 +85,10 @@ def init_mamba_params(gen: torch.Generator, d_model: int, s: SSMConfig,
     }
 
 
-def _split_in_proj(proj, d_inner, N, H):
+def _split_in_proj(proj, d_inner, d_conv):
     z = proj[..., :d_inner]
-    xBC = proj[..., d_inner:2 * d_inner + 2 * N]
-    dt = proj[..., 2 * d_inner + 2 * N:]
+    xBC = proj[..., d_inner:d_inner + d_conv]
+    dt = proj[..., d_inner + d_conv:]
     return z, xBC, dt
 
 
@@ -105,10 +109,14 @@ def _causal_conv(xBC, conv_w, conv_b, conv_state=None):
     return y, new_state
 
 
-def _gated_rmsnorm(y, z, scale, eps=1e-5):
+def _gated_rmsnorm(y, z, scale, eps=1e-5, groups: int = 1):
+    """y * silu(z), RMS-normalised over each of ``groups`` equal channel
+    groups, then scaled by (1 + scale)."""
     y = y * F.silu(z.to(y.dtype))
-    var = torch.mean(torch.square(y), dim=-1, keepdim=True)
-    return y * torch.rsqrt(var + eps) * (1.0 + scale.to(y.dtype))
+    yg = y.reshape(y.shape[:-1] + (groups, -1))
+    var = torch.mean(torch.square(yg), dim=-1, keepdim=True)
+    return (yg * torch.rsqrt(var + eps)).reshape(y.shape) \
+        * (1.0 + scale.to(y.dtype))
 
 
 def ssd_forward(params: dict, x_in: torch.Tensor, s: SSMConfig,
@@ -116,10 +124,16 @@ def ssd_forward(params: dict, x_in: torch.Tensor, s: SSMConfig,
                 return_state: bool = False):
     """Chunked SSD.  x_in: (B, S, d_model) with S a multiple of the chunk
     size.  Returns y (B, S, d_model) and, with ``return_state``, the final
-    {"h", "conv"} state."""
+    {"h", "conv"} state.  Traced as the host span ``mamba.ssd``."""
+    with tracing.span("mamba.ssd"):
+        return _ssd_forward(params, x_in, s, init_state, return_state)
+
+
+def _ssd_forward(params, x_in, s: SSMConfig, init_state, return_state):
     B, S, d_model = x_in.shape
     d_inner, H, d_conv = mamba_dims(d_model, s)
-    N, P, Q = s.state_dim, s.head_dim, s.chunk_size
+    N, P, Q, G = s.state_dim, s.head_dim, s.chunk_size, s.n_groups
+    Hg = H // G
     if S % Q:
         raise ValueError(f"sequence length {S} is not a multiple of the "
                          f"SSD chunk size {Q}")
@@ -127,13 +141,13 @@ def ssd_forward(params: dict, x_in: torch.Tensor, s: SSMConfig,
     f = _acc(x_in.dtype)
 
     proj = x_in @ params["w_in"]
-    z, xBC, dt_raw = _split_in_proj(proj, d_inner, N, H)
+    z, xBC, dt_raw = _split_in_proj(proj, d_inner, d_conv)
     xBC, conv_state = _causal_conv(
         xBC, params["conv_w"], params["conv_b"],
         None if init_state is None else init_state["conv"])
     x = xBC[..., :d_inner].reshape(B, S, H, P).to(f)
-    Bm = xBC[..., d_inner:d_inner + N].to(f)                     # (B,S,N)
-    Cm = xBC[..., d_inner + N:].to(f)                            # (B,S,N)
+    Bm = xBC[..., d_inner:d_inner + G * N].to(f)                 # (B,S,GN)
+    Cm = xBC[..., d_inner + G * N:].to(f)                        # (B,S,GN)
 
     dt = _softplus(dt_raw.to(f) + params["dt_bias"].to(f))      # (B,S,H)
     A = -torch.exp(params["a_log"].to(f))                        # (H,)
@@ -141,8 +155,8 @@ def ssd_forward(params: dict, x_in: torch.Tensor, s: SSMConfig,
 
     # chunk views
     xc = x.reshape(B, nc, Q, H, P)
-    Bc = Bm.reshape(B, nc, Q, N)
-    Cc = Cm.reshape(B, nc, Q, N)
+    Bc = Bm.reshape(B, nc, Q, G, N)
+    Cc = Cm.reshape(B, nc, Q, G, N)
     dtc = dt.reshape(B, nc, Q, H)
     cum = torch.cumsum(log_a.reshape(B, nc, Q, H), dim=2)        # inclusive
     chunk_decay = cum[:, :, -1]                                  # (B,nc,H)
@@ -153,15 +167,19 @@ def ssd_forward(params: dict, x_in: torch.Tensor, s: SSMConfig,
     above = torch.ones((Q, Q), dtype=torch.bool, device=x.device).triu(1)
     L = torch.exp(diff.masked_fill(above[None, None, :, :, None],
                                    -torch.inf))
-    cb = torch.einsum("bctn,bcjn->bctj", Cc, Bc)                 # (B,nc,Q,Q)
-    scores = cb[..., None] * L * dtc[:, :, None, :, :]           # (B,nc,Q,Q,H)
+    # each group's C·B^T, read by its Hg heads
+    cb = torch.einsum("bctgn,bcjgn->bctjg", Cc, Bc)              # (..,Q,Q,G)
+    scores = (cb[..., None] * L.reshape(B, nc, Q, Q, G, Hg)
+              * dtc.reshape(B, nc, 1, Q, G, Hg)).reshape(B, nc, Q, Q, H)
     y_intra = torch.einsum("bctjh,bcjhp->bcthp", scores, xc)
 
     # each chunk's contribution to the state carried out of it:
     # sum_j exp(cum_end - cum_j) dt_j B_j x_j
     w_end = torch.exp(chunk_decay[:, :, None, :] - cum) * dtc    # (B,nc,Q,H)
-    chunk_state = torch.einsum("bcjhp,bcjn->bchpn", xc * w_end[..., None],
-                               Bc)
+    chunk_state = torch.einsum(
+        "bcjgkp,bcjgn->bcgkpn",
+        (xc * w_end[..., None]).reshape(B, nc, Q, G, Hg, P),
+        Bc).reshape(B, nc, H, P, N)
 
     # inter-chunk recurrence over the chunk index
     h = torch.zeros((B, H, P, N), dtype=f, device=x.device) \
@@ -173,11 +191,14 @@ def ssd_forward(params: dict, x_in: torch.Tensor, s: SSMConfig,
         h = h * decay[:, c, :, None, None] + chunk_state[:, c]
     h_prevs = torch.stack(h_prevs, dim=1)                        # (B,nc,H,P,N)
 
-    y_inter = torch.einsum("bctn,bchpn->bcthp", Cc, h_prevs) \
-        * torch.exp(cum)[..., None]
+    y_inter = torch.einsum(
+        "bctgn,bcgkpn->bctgkp", Cc,
+        h_prevs.reshape(B, nc, G, Hg, P, N)).reshape(B, nc, Q, H, P)
+    y_inter = y_inter * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(B, S, H, P)
     y = y + params["d_skip"].to(f)[None, None, :, None] * x
-    y = _gated_rmsnorm(y.reshape(B, S, d_inner), z, params["norm"])
+    y = _gated_rmsnorm(y.reshape(B, S, d_inner), z, params["norm"],
+                       groups=G)
     out = y.to(x_in.dtype) @ params["w_out"]
     if return_state:
         return out, {"h": h, "conv": conv_state}
@@ -191,10 +212,10 @@ def mamba_decode_step(params: dict, x_in: torch.Tensor, state: dict,
     not written."""
     B, d_model = x_in.shape
     d_inner, H, d_conv = mamba_dims(d_model, s)
-    N, P = s.state_dim, s.head_dim
+    N, P, G = s.state_dim, s.head_dim, s.n_groups
     f = _acc(x_in.dtype)
     proj = x_in @ params["w_in"]
-    z, xBC, dt_raw = _split_in_proj(proj, d_inner, N, H)
+    z, xBC, dt_raw = _split_in_proj(proj, d_inner, d_conv)
     # conv: append the token, take the last W window
     window = torch.cat([state["conv"].to(xBC.dtype), xBC[:, None]], dim=1)
     out = torch.einsum("bwc,wc->bc", window, params["conv_w"]) \
@@ -202,16 +223,20 @@ def mamba_decode_step(params: dict, x_in: torch.Tensor, state: dict,
     xBC = F.silu(out.to(f))
     new_conv = window[:, 1:]
     x = xBC[:, :d_inner].reshape(B, H, P)
-    Bm = xBC[:, d_inner:d_inner + N]
-    Cm = xBC[:, d_inner + N:]
+    Bm = xBC[:, d_inner:d_inner + G * N].reshape(B, G, N)
+    Cm = xBC[:, d_inner + G * N:].reshape(B, G, N)
+    Hg = H // G
     dt = _softplus(dt_raw.to(f) + params["dt_bias"].to(f))      # (B,H)
     A = -torch.exp(params["a_log"].to(f))
     a = torch.exp(dt * A[None])                                  # (B,H)
+    # head h = (g, k) reads its group's B and C
     h = state["h"].to(f) * a[:, :, None, None] + torch.einsum(
-        "bh,bn,bhp->bhpn", dt, Bm, x)
-    y = torch.einsum("bn,bhpn->bhp", Cm, h)
+        "bgk,bgn,bgkp->bgkpn", dt.reshape(B, G, Hg), Bm,
+        x.reshape(B, G, Hg, P)).reshape(B, H, P, N)
+    y = torch.einsum("bgn,bgkpn->bgkp", Cm,
+                     h.reshape(B, G, Hg, P, N)).reshape(B, H, P)
     y = y + params["d_skip"].to(f)[None, :, None] * x
-    y = _gated_rmsnorm(y.reshape(B, d_inner), z, params["norm"])
+    y = _gated_rmsnorm(y.reshape(B, d_inner), z, params["norm"], groups=G)
     out = y.to(x_in.dtype) @ params["w_out"]
     return out, {"h": h, "conv": new_conv}
 

@@ -135,6 +135,14 @@ def span(name: str, round: Optional[int] = None):
     return _Scope(name, round)
 
 
+def annotate(token, key: str, value) -> None:
+    """Set attribute ``key`` of the span :func:`begin` returned ``token``
+    for, open or closed (a value known only later, such as a number read
+    from the device after the round)."""
+    if token is not None:
+        token[_ATTRS][key] = value
+
+
 def count(key: str, n) -> None:
     """Add ``n`` to attribute ``key`` of the innermost open span."""
     if _stack:

@@ -256,13 +256,21 @@ def test_lm_step_spans():
     params, _ = step(params, batch, meta)          # call 0, not recorded
     tracing.enable()
     step(params, batch, meta)
-    spans = tracing.spans()
+    every = tracing.spans()
+    # each SSD layer's span sits inside a forward (or, recomputed under
+    # remat, a backward): 2 layers x 2 DPUs, twice a local step
+    ssd = [s for s in every if s.name == "mamba.ssd"]
+    assert len(ssd) == 2 * 2 * 2 * 2
+    assert all(every[s.parent].name in ("round_step.forward",
+                                        "round_step.backward")
+               for s in ssd)
+    spans = [s for s in every if s.name != "mamba.ssd"]
     assert [(s.name, s.parent) for s in spans] == [
         ("round_step", -1),
         ("round_step.forward", 0), ("round_step.backward", 0),
         ("round_step.forward", 0), ("round_step.backward", 0)]
-    assert {s.round for s in spans} == {1}
-    assert all(_inside(s, spans[0]) for s in spans[1:])
+    assert {s.round for s in every} == {1}
+    assert all(_inside(s, spans[0]) for s in every[1:])
     assert all(a.t1 <= b.t0 for a, b in zip(spans[1:], spans[2:]))
 
 
