@@ -23,7 +23,8 @@ Each global round t (paper Secs. II+IV-VI):
 Where things live.  The control plane stays on the host: the plan, the
 ``(N, B)``-sized network arrays and the delay/energy math are float32 CPU
 tensors (the JAX package pulls them to numpy every round too), and the
-offloading split runs in numpy.  The ``cefl`` strategy's SCA solve is the
+offloading split runs in numpy, on index arrays (every ``Engine`` keeps
+the host heap its rows free, see :func:`keep_host_heap`).  The ``cefl`` strategy's SCA solve is the
 exception: it runs on the engine's ``device``, as the JAX package's jitted
 solve runs on its default device, and hands back a CPU plan.  Everything
 sized by the parameters or the data lives on the engine's ``device``: the
@@ -40,6 +41,7 @@ same draws as before.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence
@@ -67,6 +69,31 @@ from repro_torch.sharding.mesh import plane_mesh
 
 # ------------------------------------------------------- offloading -----
 
+def keep_host_heap() -> bool:
+    """Have the C library keep the heap memory a round frees for the next
+    round, rather than hand it back to the kernel.
+
+    A paper-width round allocates about 125 MB of UE rows and as much
+    again in the split's datasets, and frees both before the next round.
+    glibc by default returns large blocks to the kernel (``mmap``'d blocks
+    on free, the heap's top once it passes the trim threshold), so every
+    round faults all of those pages in again; on an H100 machine's host
+    that took more than half of the split's time.  Here every block comes
+    from the heap (``M_MMAP_MAX`` 0) and up to 1 GiB may stay free at its
+    top (``M_TRIM_THRESHOLD``).  Process-wide; returns False where the C
+    library has no ``mallopt``.
+    """
+    try:
+        mallopt = ctypes.CDLL(None).mallopt
+    except (OSError, AttributeError, TypeError):
+        return False
+    mallopt.argtypes = (ctypes.c_int, ctypes.c_int)
+    mallopt.restype = ctypes.c_int
+    M_TRIM_THRESHOLD, M_MMAP_MAX = -1, -4
+    return bool(mallopt(M_TRIM_THRESHOLD, 1 << 30)) and \
+        bool(mallopt(M_MMAP_MAX, 0))
+
+
 def realize_offloading(rng, data_per_ue: List[dict], w, net):
     """Split each UE's round data per rho_nb / rho_bs into DPU datasets.
 
@@ -78,16 +105,28 @@ def realize_offloading(rng, data_per_ue: List[dict], w, net):
     where every rho_bs share floors to zero (the whole BS pool then goes
     to the DC with the largest rho share).  The floors take float32
     shares, as the JAX package does, so both split identically.
+
+    The split itself runs on index arrays: a point is its row in the
+    UEs' rows laid end to end, and the BS pools and DC shares are
+    permuted and cut as such ids, with the same draws in the same order
+    as a split of the rows would take.  Only the datasets are allocated:
+    a UE's kept rows in one gather, a DC's one contributing UE at a time
+    (a gather of that UE's share, put in place).  The innermost open
+    tracing span counts ``offload_bytes`` (the rows this call allocates:
+    the datasets and those shares) and ``round_bytes`` (the UEs' input
+    rows).
     """
     if isinstance(w, RoundPlan):
         w = w.to_w()
     N, B, S = net.dims
     rho_nb = np.asarray(w["rho_nb"], np.float32)
     rho_bs = np.asarray(w["rho_bs"], np.float32)
-    bs_pool_x, bs_pool_y = [[] for _ in range(B)], [[] for _ in range(B)]
+    xs = [np.asarray(d["x"]) for d in data_per_ue]
+    ys = [np.asarray(d["y"]) for d in data_per_ue]
+    first = np.cumsum([0] + [len(y) for y in ys])
+    bs_pool = [[] for _ in range(B)]
     ue_data = []
-    for n, d in enumerate(data_per_ue):
-        x, y = np.asarray(d["x"]), np.asarray(d["y"])
+    for n, (x, y) in enumerate(zip(xs, ys)):
         D = len(y)
         if D == 0:
             ue_data.append({"x": x, "y": y})
@@ -104,25 +143,22 @@ def realize_offloading(rng, data_per_ue: List[dict], w, net):
             excess -= take
         start = 0
         for b in range(B):
-            take = perm[start:start + counts[b]]
+            if counts[b]:
+                bs_pool[b].append(first[n] + perm[start:start + counts[b]])
             start += counts[b]
-            if len(take):
-                bs_pool_x[b].append(x[take])
-                bs_pool_y[b].append(y[take])
         keep = perm[start:]
         ue_data.append({"x": x[keep], "y": y[keep]})
-    dc_x, dc_y = [[] for _ in range(S)], [[] for _ in range(S)]
+    dc_ids = [[] for _ in range(S)]
     for b in range(B):
-        if not bs_pool_x[b]:
+        if not bs_pool[b]:
             continue
-        x = np.concatenate(bs_pool_x[b])
-        y = np.concatenate(bs_pool_y[b])
-        perm = rng.permutation(len(y))
-        counts = np.floor(rho_bs[b] * len(y)).astype(int)
+        pool = np.concatenate(bs_pool[b])
+        perm = rng.permutation(len(pool))
+        counts = np.floor(rho_bs[b] * len(pool)).astype(int)
         # BSs keep no data: the rounding remainder goes to the DC with the
         # largest rho share (covers the all-floored-to-zero pool case);
         # shave from the largest counts if a row ever over-allocates.
-        rem = len(y) - counts.sum()
+        rem = len(pool) - counts.sum()
         while rem < 0:
             j = int(np.argmax(counts))
             give = min(-rem, counts[j])
@@ -131,18 +167,36 @@ def realize_offloading(rng, data_per_ue: List[dict], w, net):
         counts[int(np.argmax(rho_bs[b]))] += rem
         start = 0
         for s in range(S):
-            take = perm[start:start + counts[s]]
+            if counts[s]:
+                dc_ids[s].append(pool[perm[start:start + counts[s]]])
             start += counts[s]
-            if len(take):
-                dc_x[s].append(x[take])
-                dc_y[s].append(y[take])
-    dc_data = []
-    for s in range(S):
-        if dc_x[s]:
-            dc_data.append({"x": np.concatenate(dc_x[s]),
-                            "y": np.concatenate(dc_y[s])})
-        else:
+    dc_data, taken = [], 0
+    for parts in dc_ids:
+        if not parts:
             dc_data.append(None)
+            continue
+        # the DC's ids sorted, so grouped by UE: its rows
+        # positions[cuts[n]:cuts[n + 1]] take UE n's rows ids[...] - first[n]
+        ids = np.concatenate(parts)
+        positions = np.argsort(ids)
+        ids = ids[positions]
+        cuts = np.searchsorted(ids, first)
+        srcs = np.flatnonzero(np.diff(cuts))
+        dc = {}
+        for key, arrays in (("x", xs), ("y", ys)):
+            out = np.empty((len(ids),) + arrays[srcs[0]].shape[1:],
+                           np.result_type(*(arrays[n] for n in srcs)))
+            for n in srcs:
+                a, z = cuts[n], cuts[n + 1]
+                rows = arrays[n][ids[a:z] - first[n]]
+                out[positions[a:z]] = rows
+                taken += rows.nbytes
+            dc[key] = out
+        dc_data.append(dc)
+    tracing.count("round_bytes", sum(a.nbytes for a in xs + ys))
+    tracing.count("offload_bytes", taken + sum(
+        d[k].nbytes for d in ue_data + dc_data if d is not None
+        for k in ("x", "y")))
     return ue_data, dc_data
 
 
@@ -722,6 +776,7 @@ class Engine:
         self.validate_plans = validate_plans
         self.consts = consts
         self.ow = ow
+        keep_host_heap()
 
     def on_round_end(self, callback: RoundCallback) -> RoundCallback:
         """Register a callback (usable as a decorator).  Returning True

@@ -16,6 +16,7 @@ Also here: the import boundary of the port (no JAX, no ``repro``).  The
 ``fednova`` run lives in ``test_torch_engine_fednova.py``, so that the two
 JAX runs (mostly XLA compiles) go to two test workers.
 """
+import json
 import os
 import subprocess
 import sys
@@ -174,3 +175,38 @@ def test_port_imports_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_engine_keeps_the_host_heap():
+    """``keep_host_heap`` (each Engine calls it): a block larger than
+    glibc's largest ``mmap`` threshold comes from the heap, and the heap
+    keeps it mapped once freed, so the next round's rows reuse its pages.
+    In a process of its own: the policy is process-wide."""
+    code = (
+        "import ctypes, json\n"
+        "import numpy as np\n"
+        "from repro_torch.core.engine import keep_host_heap\n"
+        "class Info(ctypes.Structure):\n"
+        "    _fields_ = [(n, ctypes.c_size_t) for n in (\n"
+        "        'arena', 'ordblks', 'smblks', 'hblks', 'hblkhd', 'usmblks',\n"
+        "        'fsmblks', 'uordblks', 'fordblks', 'keepcost')]\n"
+        "libc = ctypes.CDLL(None)\n"
+        "libc.mallinfo2.restype = Info\n"
+        "def block():\n"
+        "    a = np.ones(1 << 26, np.uint8)\n"
+        "    held = libc.mallinfo2()\n"
+        "    del a\n"
+        "    return [held.hblkhd, libc.mallinfo2().arena]\n"
+        "before = block()\n"
+        "kept = keep_host_heap()\n"
+        "print(json.dumps([before, kept, block()]))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src"), str(REPO)]))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    (mapped, _), kept, (mapped_after, arena_after) = json.loads(
+        out.stdout.strip().splitlines()[-1])
+    assert kept
+    assert mapped >= 1 << 26 > mapped_after
+    assert arena_after >= 1 << 26

@@ -209,6 +209,34 @@ def test_h2d_bytes_are_the_staged_arrays(world, path):
     assert spans[0].t1 <= spans[1].t0
 
 
+@pytest.mark.parametrize("offload", ["greedy", "all"])
+def test_offload_counts(world, offload, monkeypatch):
+    """One round's ``engine.offload`` span counts the bytes of the rows
+    the split was handed and of the rows it allocated: about one copy of
+    each, and at most two even when every UE offloads all but one
+    point."""
+    eng, state, ues = _engine(world, "greedy_data")
+    if offload == "all":
+        decide = eng.decide
+
+        def all_offload(*args, **kw):       # each UE's data to its BS
+            plan = decide(*args, **kw)
+            return plan.replace(rho_nb=plan.I_nb)
+
+        monkeypatch.setattr(eng, "decide", all_offload)
+    tracing.enable()
+    staged = eng.begin_round(state, ues)
+    (span,) = [s for s in tracing.spans() if s.name == "engine.offload"]
+    if offload == "all":
+        assert [len(d["y"]) for d in staged.datasets[:N]] == [1] * N
+    # the split conserves rows, so its outputs hold the input's bytes
+    held = sum(d["x"].nbytes + d["y"].nbytes for d in staged.datasets
+               if d is not None)
+    assert set(span.attrs) == {"offload_bytes", "round_bytes"}
+    assert span.attrs["round_bytes"] == held > 0
+    assert held <= span.attrs["offload_bytes"] <= 2 * held
+
+
 @pytest.mark.parametrize("max_outer", [1, 3])
 def test_sca_counts(world, max_outer):
     D_bar = torch.full((N,), 300.0)

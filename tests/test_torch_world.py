@@ -3,6 +3,8 @@ streams (image pool, online arrivals, topology, rate jitter, offloading)
 bit for bit, the heuristic plans of the five ported strategies, and the
 float32 delay/energy model to ``rtol=1e-5`` (small f32 reductions summed
 in another order)."""
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,6 +114,35 @@ def test_heuristic_plans_match_jax(strategy, dims):
     assert tplan.aggregator == jplan.aggregator
 
 
+def _assert_split_matches_jax(data, jw, tw, jnet, tnet):
+    """The port's split against the JAX package's from one seed: the same
+    rows in the same order, the same RNG state after, and every returned
+    array a fresh C-contiguous copy (a UE with no data keeps its empty
+    input arrays).  Returns the port's datasets."""
+    jrng, trng = np.random.RandomState(7), np.random.RandomState(7)
+    ju, jd = jengine.realize_offloading(jrng, data, jw, jnet)
+    tu, td = tengine.realize_offloading(trng, data, tw, tnet)
+    js, ts = jrng.get_state(), trng.get_state()
+    assert ts[0] == js[0] and ts[2:] == js[2:]
+    np.testing.assert_array_equal(ts[1], js[1])
+    inputs = [d[k] for d in data for k in ("x", "y")]
+    for n, (j, t) in enumerate(zip(ju + jd, tu + td)):
+        if j is None:
+            assert t is None
+            continue
+        for k in ("x", "y"):
+            np.testing.assert_array_equal(t[k], np.asarray(j[k]))
+            assert isinstance(t[k], np.ndarray) and t[k].flags.c_contiguous
+            assert not any(np.shares_memory(t[k], a) for a in inputs)
+            if n < len(data):
+                assert t[k].dtype == data[n][k].dtype
+            if len(t[k]):
+                assert t[k].flags.owndata
+    total = sum(len(d["y"]) for d in tu + td if d is not None)
+    assert total == sum(len(d["y"]) for d in data)
+    return tu, td
+
+
 @pytest.mark.parametrize("strategy", ["greedy_data", "fednova"])
 @pytest.mark.parametrize("dims", DIMS)
 def test_offloading_splits_match_jax(strategy, dims):
@@ -124,18 +155,55 @@ def test_offloading_splits_match_jax(strategy, dims):
         idx = rng.choice(len(y), 20 + 3 * n, replace=False)
         data.append({"x": x[idx], "y": y[idx]})
     data[1] = {"x": x[:0], "y": y[:0]}          # a UE with no data
-    ju, jd = jengine.realize_offloading(np.random.RandomState(7), data,
-                                        jplan, jn)
-    tu, td = tengine.realize_offloading(np.random.RandomState(7), data,
-                                        tplan, tn)
-    for j, t in zip(ju + jd, tu + td):
-        if j is None:
-            assert t is None
-            continue
-        np.testing.assert_array_equal(t["x"], np.asarray(j["x"]))
-        np.testing.assert_array_equal(t["y"], np.asarray(j["y"]))
-    total = sum(len(d["y"]) for d in tu + td if d is not None)
-    assert total == sum(len(d["y"]) for d in data)
+    _assert_split_matches_jax(data, jplan, tplan, jn, tn)
+
+
+SPLIT_CASES = ["paper", "all_offload", "floored_rho_bs", "dc_gets_nothing",
+               "empty_ue", "cohort", "int32_and_int64_labels"]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_offloading_edge_cases_match_jax(case):
+    """The split's edge cases bit for bit against the JAX package's."""
+    rng = np.random.RandomState(11)
+    dims = (20, 10, 5) if case == "paper" else (6, 3, 3)
+    N, B, S = dims
+    sizes = rng.normal(2000, 200, N).astype(int) if case == "paper" \
+        else 20 + 3 * np.arange(N)
+    rho_nb = rng.dirichlet(np.ones(B), N) * 0.5
+    rho_bs = rng.dirichlet(np.ones(S), B)
+    labels = [np.int32, np.int64] if case == "int32_and_int64_labels" \
+        else [np.int64]
+    data = [{"x": rng.rand(D, 4, 4, 1).astype(np.float32),
+             "y": rng.randint(0, 10, D).astype(labels[n % len(labels)])}
+            for n, D in enumerate(sizes)]
+    if case == "all_offload":                # each UE's data to one BS
+        rho_nb = np.eye(B)[np.arange(N) % B]
+    elif case == "floored_rho_bs":
+        rho_bs[1] = [1e-3, 3e-3, 2e-3]      # every share floors to zero
+    elif case == "dc_gets_nothing":
+        rho_bs[:, 0] = 0.0
+        rho_bs /= rho_bs.sum(axis=1, keepdims=True)
+    elif case == "empty_ue":
+        data[1] = {k: v[:0] for k, v in data[1].items()}
+    elif case == "cohort":                 # as Engine masks a cohort round
+        data = [d if n in (0, 3, 4) else {k: v[:0] for k, v in d.items()}
+                for n, d in enumerate(data)]
+    w = {"rho_nb": rho_nb.astype(np.float32),
+         "rho_bs": rho_bs.astype(np.float32)}
+    net = types.SimpleNamespace(dims=dims)
+    tu, td = _assert_split_matches_jax(data, w, w, net, net)
+    if case == "all_offload":
+        assert [len(d["y"]) for d in tu] == [1] * N
+    elif case == "floored_rho_bs":
+        # BS 1's pool is small enough for every share to floor to zero
+        pool = np.floor(rho_nb[:, 1].astype(np.float32) * sizes).sum()
+        assert 0 < pool * 3e-3 < 1
+    elif case == "dc_gets_nothing":
+        assert td[0] is None and all(d is not None for d in td[1:])
+    elif case == "int32_and_int64_labels":
+        # every DC receives from an int64 UE: concatenate's promotion
+        assert all(d["y"].dtype == np.int64 for d in td)
 
 
 @pytest.mark.parametrize("strategy", STRATEGIES)
