@@ -74,18 +74,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
              ``tests/test_solver_diff.py``'s bar, and one profiled solve.
 8. sweeps  — (runs after 7) ``repro_torch.experiments.sweep``:
              ``paper_table1`` at paper width, seeds 0, 1, 2 cut to 4
-             rounds, with the vmap executor (one ``fedprox_accum`` launch
-             per cross-run DPU group and step, per-DPU anchors) and then
-             the sequential one: the run structure (plans, aggregators,
-             dc_points, handovers, active UEs, energy, delay) must be
-             identical, params / losses / accuracy bit for bit or within
-             rtol 1e-6; each sequential seed bit for bit
-             ``experiments.run``'s.  Per round: plan / device seconds and
-             launches against the groups; the sweep's wall time against
-             three solo runs.  Kill and resume of ``sweep_smoke``
-             (campus_walk, 4 rounds) and of the paper_table1 sweep
-             (stopped after round 2 into a checkpoint, resumed; bit for
-             bit; checkpoint bytes, write / read seconds).  The cohort
+             rounds, each seed through its own engine in round lockstep:
+             each seed bit for bit ``experiments.run``'s (the run
+             structure, losses, accuracy and params).  Per round: plan /
+             device seconds and launches against the groups; the sweep's
+             wall time against three solo runs.  Kill and resume of
+             ``sweep_smoke`` (campus_walk, 4 rounds) and of the
+             paper_table1 sweep (stopped after round 2 into a checkpoint,
+             resumed; bit for bit; checkpoint bytes, write / read
+             seconds).  The cohort
              threat path: paper_table1's world at 100 UEs, 72 drawn a
              round, ``byzantine`` under ``greedy_data``, trimmed mean x3
              and median x2: every round one ``robust_aggregate`` launch
@@ -2510,10 +2507,6 @@ COHORT_THREAT_RUNS = [("trimmed_mean", 3), ("median", 2)]
 # The cefl cohort run: the SCA solve on a 10-UE subnetwork of paper_table1
 COHORT_CEFL_OVER = {"engine.cohort_size": 10, "engine.rounds": 2,
                     "seeds": (0,)}
-# vmap against sequential: params, losses and accuracy within this of the
-# sequential executor's (the cross-run group's bmm batch count differs
-# from a run's own, and cuBLAS may pick its algorithm by batch count)
-SWEEP_RTOL = 1e-6
 
 
 def _identical(a, b) -> bool:
@@ -2531,44 +2524,6 @@ def _identical(a, b) -> bool:
         if any(not torch.equal(wa[k], wb[k]) for k in wa):
             return False
     return all(torch.equal(a.params[k], b.params[k]) for k in a.params)
-
-
-def sweep_parity(vm, seq) -> dict:
-    """The parity contract between the two executors' results: the run
-    structure (plans, aggregators, dc_points, handovers, active UEs,
-    energy, delay) exact; params, losses and accuracy bit for bit or
-    within ``SWEEP_RTOL`` (losses and accuracy relative, params by the
-    largest |param| of each leaf).  Raises on a miss."""
-    out = {"exact": True, "loss_rel": 0.0, "acc_rel": 0.0,
-           "params_rel": 0.0}
-    for (key, a), (_, b) in zip(vm.runs, seq.runs):
-        for ra, rb in zip(a.reports, b.reports):
-            for f in ("round", "aggregator", "dc_points", "handovers",
-                      "active_ues", "energy", "delay", "cum_energy",
-                      "cum_delay", "gamma_mean", "m_mean"):
-                if getattr(ra, f) != getattr(rb, f):
-                    raise AssertionError(f"sweep seed {key.seed} round "
-                                         f"{ra.round}: {f} differs")
-            wa, wb = ra.plan.to_w(), rb.plan.to_w()
-            for k in wa:
-                if not torch.equal(wa[k], wb[k]):
-                    raise AssertionError(f"sweep seed {key.seed} round "
-                                         f"{ra.round}: plan {k} differs")
-            for f in ("loss", "acc"):
-                x, y = getattr(ra, f), getattr(rb, f)
-                rel = abs(x - y) / max(abs(y), 1e-30)
-                out[f"{f}_rel"] = max(out[f"{f}_rel"], rel)
-        for k in a.params:
-            err = float((a.params[k] - b.params[k]).abs().max())
-            scale = float(b.params[k].abs().max())
-            out["params_rel"] = max(out["params_rel"], err / scale)
-    out["exact"] = all(_identical(a, b)
-                       for (_, a), (_, b) in zip(vm.runs, seq.runs))
-    worst = max(out["loss_rel"], out["acc_rel"], out["params_rel"])
-    if worst > SWEEP_RTOL:
-        raise AssertionError(f"vmap vs sequential sweep: {out} beyond "
-                             f"rtol {SWEEP_RTOL}")
-    return out
 
 
 class _ShapeRecorder:
@@ -2626,26 +2581,16 @@ class _ShapeRecorder:
          kna.nova_aggregate_stacked) = self._real
 
 
-def _want_launches(groups_per_run, union: bool) -> int:
-    """fedprox_accum launches of one sweep round: gamma per DPU group,
-    per run (sequential) or per cross-run group (vmap)."""
-    if union:
-        keys = set().union(*[set(g) for g in groups_per_run])
-        return sum(gamma for gamma, _m, _b in keys)
-    return sum(gamma for g in groups_per_run for gamma, _m, _b in g)
-
-
 def drive_sweep_path(dev):
     """Phase 8, part 1-2: the paper_table1 sweep through
-    ``experiments.sweep`` with the vmap and then the sequential executor,
-    held to the parity contract; three solo ``experiments.run``s, each
-    bit for bit the sequential sweep's seed; then kill and resume
-    (``stop_after=2`` into a checkpoint, ``resume=True``) of sweep_smoke
-    (campus_walk, 4 rounds) and of the paper_table1 sweep, bit for bit
-    against the uninterrupted vmap sweeps (paper_table1's round 3
-    re-solves from the restored warm-start plan: one SCA solve per seed
-    on resume).  Per sweep round: plan seconds (every run's begin_round),
-    device seconds, fedprox_accum launches against the groups."""
+    ``experiments.sweep``; three solo ``experiments.run``s, each bit for
+    bit the sweep's seed; then kill and resume (``stop_after=2`` into a
+    checkpoint, ``resume=True``) of sweep_smoke (campus_walk, 4 rounds)
+    and of the paper_table1 sweep, bit for bit against the uninterrupted
+    sweeps (paper_table1's round 3 re-solves from the restored
+    warm-start plan: one SCA solve per seed on resume).  Per sweep round:
+    plan seconds (every run's begin_round), device seconds, fedprox_accum
+    launches against the groups."""
     import importlib
     import tempfile
     from repro_torch import experiments
@@ -2661,9 +2606,7 @@ def drive_sweep_path(dev):
     real = {"begin": Engine.begin_round,
             "save": runstate.save_sweep_state,
             "load": runstate.load_sweep_state, "solve": sca.solve,
-            sw.SequentialSweepExecutor: sw.SequentialSweepExecutor
-            ._device_phase,
-            sw.VmapSweepExecutor: sw.VmapSweepExecutor._device_phase}
+            "phase": sw.SequentialSweepExecutor._device_phase}
 
     def begin_round(self, state, ues):
         t0 = time.perf_counter()
@@ -2671,33 +2614,29 @@ def drive_sweep_path(dev):
         cur["plan"] += time.perf_counter() - t0
         return out
 
-    def wrap_phase(cls):
-        def phase(self, ctx, active, staged):
-            before = dict(ops.LAUNCHES)
-            groups = [dpu_groups(st.plan, live_dpus(st.datasets))
-                      for st in staged]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            real[cls](self, ctx, active, staged)
-            torch.cuda.synchronize()
-            got = {k: ops.LAUNCHES[k] - before[k] for k in before}
-            want = _want_launches(groups,
-                                  union=self.executor_name == "vmap")
-            if got["fedprox_accum"] != want or \
-                    got["nova_aggregate"] != len(active):
-                raise AssertionError(
-                    f"{self.executor_name} sweep round {staged[0].t}: "
-                    f"launches {got}, want fedprox_accum {want} and "
-                    f"nova_aggregate {len(active)}")
-            records.append({
-                "spec": ctx.spec.name, "executor": self.executor_name,
-                "round": staged[0].t, "runs": len(active),
-                "plan_s": cur["plan"],
-                "device_s": time.perf_counter() - t0,
-                "groups": [[len(v) for v in g.values()] for g in groups],
-                "launches": got})
-            cur["plan"] = 0.0
-        return phase
+    def device_phase(self, ctx, active, staged):
+        before = dict(ops.LAUNCHES)
+        groups = [dpu_groups(st.plan, live_dpus(st.datasets))
+                  for st in staged]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real["phase"](self, ctx, active, staged)
+        torch.cuda.synchronize()
+        got = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        # gamma launches per DPU group, per run
+        want = sum(gamma for g in groups for gamma, _m, _b in g)
+        if got["fedprox_accum"] != want or \
+                got["nova_aggregate"] != len(active):
+            raise AssertionError(
+                f"sweep round {staged[0].t}: launches {got}, want "
+                f"fedprox_accum {want} and nova_aggregate {len(active)}")
+        records.append({
+            "spec": ctx.spec.name, "round": staged[0].t,
+            "runs": len(active), "plan_s": cur["plan"],
+            "device_s": time.perf_counter() - t0,
+            "groups": [[len(v) for v in g.values()] for g in groups],
+            "launches": got})
+        cur["plan"] = 0.0
 
     def timed(name):
         def fn(*a, **kw):
@@ -2721,48 +2660,37 @@ def drive_sweep_path(dev):
         **{"engine.rounds": 4})
     out = {}
     Engine.begin_round = begin_round
-    for cls in (sw.SequentialSweepExecutor, sw.VmapSweepExecutor):
-        cls._device_phase = wrap_phase(cls)
+    sw.SequentialSweepExecutor._device_phase = device_phase
     runstate.save_sweep_state = timed("save")
     runstate.load_sweep_state = timed("load")
     sca.solve = solve
     try:
         experiments.build_context(spec, device=dev)    # phase 7's, cached
-        results, wall = {}, {}
-        for executor in ("vmap", "sequential"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            results[executor] = sweep(spec, executor=executor, device=dev)
-            torch.cuda.synchronize()
-            wall[executor] = time.perf_counter() - t0
-        parity = sweep_parity(results["vmap"], results["sequential"])
+        wall = {}
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spec_full = sweep(spec, device=dev)
+        torch.cuda.synchronize()
+        wall["sweep"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         for seed in spec.run_seeds:
             solo = experiments.run(spec, seed=seed, device=dev)
-            if not _identical(results["sequential"].result(seed), solo):
-                raise AssertionError(f"sequential sweep seed {seed} is not "
+            if not _identical(spec_full.result(seed), solo):
+                raise AssertionError(f"sweep seed {seed} is not "
                                      "experiments.run's bit for bit")
         torch.cuda.synchronize()
         wall["three_solo_runs"] = time.perf_counter() - t0
-        out.update(parity=parity, wall_s=wall,
-                   stats=results["vmap"].stats())
-        # sweep_smoke (greedy_data: every DPU of a run shares its (gamma,
-        # m), so runs' groups merge) both ways: the launch contrast
-        smoke_full = sweep(smoke, executor="vmap", device=dev)
-        out["smoke_parity"] = sweep_parity(
-            smoke_full, sweep(smoke, executor="sequential", device=dev))
+        out.update(wall_s=wall, stats=spec_full.stats())
+        smoke_full = sweep(smoke, device=dev)
         resume = {}
         with tempfile.TemporaryDirectory() as tmp:
-            for s, full in ((smoke, smoke_full), (spec, results["vmap"])):
+            for s, full in ((smoke, smoke_full), (spec, spec_full)):
                 ck = Path(tmp) / s.name
                 n_save = len(ck_times["save"])
-                part = sweep(s, executor="vmap", device=dev,
-                             checkpoint_dir=ck, stop_after=2)
+                part = sweep(s, device=dev, checkpoint_dir=ck, stop_after=2)
                 nbytes = sum(f.stat().st_size for f in ck.iterdir())
                 n0 = len(solves)
-                res = sweep(s, executor="vmap", device=dev,
-                            checkpoint_dir=ck, resume=True)
+                res = sweep(s, device=dev, checkpoint_dir=ck, resume=True)
                 for seed in s.run_seeds:
                     if len(part.result(seed)) != 2 or not _identical(
                             res.result(seed), full.result(seed)):
@@ -2782,36 +2710,25 @@ def drive_sweep_path(dev):
         out["resume"] = resume
     finally:
         Engine.begin_round = real["begin"]
-        for cls in (sw.SequentialSweepExecutor, sw.VmapSweepExecutor):
-            cls._device_phase = real[cls]
+        sw.SequentialSweepExecutor._device_phase = real["phase"]
         runstate.save_sweep_state = real["save"]
         runstate.load_sweep_state = real["load"]
         sca.solve = real["solve"]
     out["rounds"] = records
     for r in records:
-        log(f"  {r['spec']:<12} {r['executor']:<10} round {r['round']}: "
-            f"plan {r['plan_s']:.3f} s  device {r['device_s']:.3f} s  "
-            f"fedprox_accum {r['launches']['fedprox_accum']}  groups "
-            f"{r['groups']}")
+        log(f"  {r['spec']:<12} round {r['round']}: plan {r['plan_s']:.3f} "
+            f"s  device {r['device_s']:.3f} s  fedprox_accum "
+            f"{r['launches']['fedprox_accum']}  groups {r['groups']}")
     for s in (spec, smoke):
-        for executor in ("vmap", "sequential"):
-            rs = [r for r in records if r["spec"] == s.name
-                  and r["executor"] == executor][:s.engine.rounds]
-            out[f"{s.name}_{executor}_per_round"] = {
-                "plan_s": [r["plan_s"] for r in rs],
-                "device_s": [r["device_s"] for r in rs],
-                "fedprox_accum": [r["launches"]["fedprox_accum"]
-                                  for r in rs]}
+        rs = [r for r in records if r["spec"] == s.name][:s.engine.rounds]
+        out[f"{s.name}_per_round"] = {
+            "plan_s": [r["plan_s"] for r in rs],
+            "device_s": [r["device_s"] for r in rs],
+            "fedprox_accum": [r["launches"]["fedprox_accum"] for r in rs]}
     log(f"  paper_table1 sweep of seeds {list(spec.run_seeds)} x "
-        f"{spec.engine.rounds} rounds: vmap {wall['vmap']:.3f} s, "
-        f"sequential {wall['sequential']:.3f} s, three solo runs "
-        f"{wall['three_solo_runs']:.3f} s; vmap vs sequential: exact "
-        f"{parity['exact']}, loss rel {parity['loss_rel']:.3g}, acc rel "
-        f"{parity['acc_rel']:.3g}, params rel {parity['params_rel']:.3g}")
-    log(f"  sweep_smoke vmap vs sequential: {out['smoke_parity']}; "
-        f"fedprox_accum per round vmap "
-        f"{out['sweep_smoke_vmap_per_round']['fedprox_accum']}, sequential "
-        f"{out['sweep_smoke_sequential_per_round']['fedprox_accum']}")
+        f"{spec.engine.rounds} rounds: {wall['sweep']:.3f} s, three solo "
+        f"runs {wall['three_solo_runs']:.3f} s; each seed bit for bit its "
+        f"solo run")
     for name, r in out["resume"].items():
         log(f"  resume {name}: checkpoint {r['checkpoint_bytes']} bytes, "
             f"write {r['write_s']:.4f} s, read {r['read_s']:.4f} s, "
@@ -4562,9 +4479,9 @@ def main() -> int:
     c_check = cefl_solve_check(dev, c_contexts["paper_table1"])
 
     log("phase 8: sweeps through experiments.sweep (paper_table1 seeds "
-        "0-2 x 4 rounds, vmap and sequential), kill and resume, the "
-        "cohort threat path (100 UEs, 72 a round) and a cefl cohort run, "
-        "two fuzzer draws")
+        "0-2 x 4 rounds, each seed against a solo run), kill and resume, "
+        "the cohort threat path (100 UEs, 72 a round) and a cefl cohort "
+        "run, two fuzzer draws")
     timer = Timer(dev)
     p_launches, p_shapes, p_records = drive_sweep_phase(dev, timer, bw,
                                                         f32_rate)

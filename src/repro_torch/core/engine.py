@@ -498,21 +498,15 @@ class MeshExecutor:
         if layout is None:
             return None
         _, ms = _plan_settings(plan)
-        bucket = layout.bucket
-        # one zero-padded (n, n_micro=1, bucket, ...) stack per field
-        batch = {}
-        for name, first in datasets[layout.dpus[0]].items():
-            first = torch.as_tensor(first)
-            stack = torch.zeros((len(layout.dpus), 1, bucket)
-                                + tuple(first.shape[1:]), dtype=first.dtype,
-                                device=device)
-            for j, (i, D) in enumerate(zip(layout.dpus, layout.sizes)):
-                stack[j, 0, :D].copy_(torch.as_tensor(datasets[i][name]))
-            batch[name] = stack
+        # SimExecutor's zero-padded (n, bucket, ...) stack per field, with
+        # the step's n_micro = 1 axis
+        batch = {name: stack.unsqueeze(1) for name, stack in
+                 fedprox._stack_data([datasets[i] for i in layout.dpus],
+                                     layout.sizes, device).items()}
         # real examples sit first, so folding the pad into the mini-batch
         # ratio makes the leading-example mask select ceil(m_i * D_i) of
         # them and none of the padding
-        m_eff = np.array([ms[i] * D / bucket
+        m_eff = np.array([ms[i] * D / layout.bucket
                           for i, D in zip(layout.dpus, layout.sizes)])
         w = np.asarray(layout.sizes, float)
         w = w / w.sum()

@@ -26,10 +26,8 @@ Mini-batches are drawn from a ``torch.Generator`` on the data's device,
 one ``torch.rand((gamma, D_i))`` per DPU in group order; its draws differ
 from the JAX package's ``jax.random`` streams.
 
-Entry points: :func:`local_round_plane` (a fused single-group round),
-:func:`local_train_batched` (a group) and :func:`train_multi_staged` (a
-staged group whose elements each carry their own global model: the
-cross-run form of the multi-seed sweep).
+Entry points: :func:`local_round_plane` (a fused single-group round) and
+:func:`local_train_batched` (a group).
 """
 from __future__ import annotations
 
@@ -275,46 +273,6 @@ def local_round_plane(params, loss_fn: Callable, datasets, *, gamma: int,
             None if eval_fn is None else float(acc))
 
 
-def _group_results(spec, p_stack, acc, losses, Ds, *, gamma, m_frac, eta,
-                   mu):
-    """One plane-backed :class:`LocalResult` per element of a trained
-    group: d_i = acc_i / ||a||_1 (eq. 10), the loss the mean over the
-    gamma steps."""
-    a1 = float(torch.sum(a_coefficients(gamma, eta, mu)))
-    d_stack = acc / a1
-    mean_loss = step_means(losses)
-    return [LocalResult(
-        params=ParamPlane(data=p_stack[j], spec=spec),
-        d_i=ParamPlane(data=d_stack[j], spec=spec),
-        num_examples=Ds[j], gamma=gamma,
-        sgd_flops=float(gamma) * m_frac * Ds[j],
-        loss=float(mean_loss[j])) for j in range(len(Ds))]
-
-
-def _train_group_plane(plane: ParamPlane, loss_fn, staged, Ds, *, gamma,
-                       m_frac, eta, mu):
-    """Train a group from its staged ``(data_stack, idx, weights)`` and
-    return one plane-backed :class:`LocalResult` per DPU."""
-    G = len(Ds)
-    p0 = plane.broadcast(G).data.contiguous()
-    data_stack, idx, weights = staged
-    p_stack, acc, losses = _plane_train_core(loss_fn, plane.spec)(
-        p0, plane.data, data_stack, idx, weights,
-        a_coefficients(gamma, eta, mu), eta, mu)
-    return _group_results(plane.spec, p_stack, acc, losses, Ds, gamma=gamma,
-                          m_frac=m_frac, eta=eta, mu=mu)
-
-
-def _local_train_batched_plane(params, loss_fn, datasets, *, gamma, m_frac,
-                               eta, mu, generator):
-    plane = as_plane(params)
-    Ds, bucket = _group_layout(datasets, m_frac)
-    staged = _stage_group_batches(datasets, generator, Ds, bucket, gamma,
-                                  m_frac, plane.data.device)
-    return _train_group_plane(plane, loss_fn, staged, Ds, gamma=gamma,
-                              m_frac=m_frac, eta=eta, mu=mu)
-
-
 def _empty_result(params, gamma: int) -> LocalResult:
     """A D == 0 DPU trains nothing: params unchanged, d_i = 0, nan loss."""
     plane = as_plane(params)
@@ -344,25 +302,23 @@ def local_train_batched(params, loss_fn: Callable, datasets, *, gamma: int,
             for j, r in zip(live, sub):
                 out[j] = r
         return out
-    return _local_train_batched_plane(params, loss_fn, datasets, gamma=gamma,
-                                      m_frac=m_frac, eta=eta, mu=mu,
-                                      generator=generator)
-
-
-def train_multi_staged(anchors: torch.Tensor, spec, loss_fn: Callable,
-                       data_stack: dict, idx, weights, *, gamma: int,
-                       eta: float, mu: float):
-    """Train a staged group whose elements carry their OWN global model:
-    ``anchors`` is ``(G, R, LANE)``, element j starting from and proximal
-    to ``anchors[j]``, through the per-DPU-anchor form of
-    ``fedprox_accum`` (one launch per local step for the whole group).
-    ``data_stack`` / ``idx`` / ``weights`` as :func:`_stage_group_batches`
-    gives them.  Returns the raw ``(p_stack, acc, losses)``: the final
-    planes, the eq.-10 numerators and the ``(gamma, G)`` step losses."""
-    p0 = anchors.contiguous()
-    return _plane_train_core(loss_fn, spec)(
-        p0, p0, data_stack, idx, weights, a_coefficients(gamma, eta, mu),
-        eta, mu)
+    plane = as_plane(params)
+    G = len(datasets)
+    Ds, bucket = _group_layout(datasets, m_frac)
+    data_stack, idx, weights = _stage_group_batches(
+        datasets, generator, Ds, bucket, gamma, m_frac, plane.data.device)
+    a = a_coefficients(gamma, eta, mu)
+    p_stack, acc, losses = _plane_train_core(loss_fn, plane.spec)(
+        plane.broadcast(G).data.contiguous(), plane.data, data_stack, idx,
+        weights, a, eta, mu)
+    d_stack = acc / float(torch.sum(a))             # eq. 10
+    mean_loss = step_means(losses)
+    return [LocalResult(
+        params=ParamPlane(data=p_stack[j], spec=plane.spec),
+        d_i=ParamPlane(data=d_stack[j], spec=plane.spec),
+        num_examples=Ds[j], gamma=gamma,
+        sgd_flops=float(gamma) * m_frac * Ds[j],
+        loss=float(mean_loss[j])) for j in range(G)]
 
 
 def verify_accumulation_identity(params0, result: LocalResult, *, eta, mu):

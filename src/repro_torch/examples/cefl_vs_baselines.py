@@ -56,7 +56,7 @@ def main(argv=None):
     print("[2/3] running CE-FL and baselines ...")
     specs = [base.override(**{"name": strat, "strategy": strat})
              for strat in STRATEGIES]
-    result = E.sweep(specs, executor="sequential", device=args.device)
+    result = E.sweep(specs, device=args.device)
     finals = {}
     for strat in STRATEGIES:
         res = result.result(0, strat)

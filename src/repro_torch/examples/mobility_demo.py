@@ -37,8 +37,7 @@ def main(argv=None):
     results = {}
     for spec in specs:
         print(f"== {spec.strategy} under scenario {args.scenario!r} ==")
-        res = E.sweep(spec, executor="sequential",
-                      device=args.device).result(args.seed)
+        res = E.sweep(spec, device=args.device).result(args.seed)
         results[spec.name] = res
         print("round | agg DC | moved | handovers           | active UEs")
         for r in res.reports:

@@ -15,8 +15,7 @@ from repro_torch.experiments.build import (  # noqa: F401
 )
 from repro_torch.experiments.run import run, sweep  # noqa: F401
 from repro_torch.experiments.sweep import (  # noqa: F401
-    RunKey, SequentialSweepExecutor, SweepResult, VmapSweepExecutor,
-    get_sweep_executor,
+    RunKey, SequentialSweepExecutor, SweepResult,
 )
 from repro_torch.experiments.spec import (  # noqa: F401
     ConstsSpec, DataSpec, EngineSpec, ExperimentSpec, ModelSpec,

@@ -8,7 +8,7 @@
     python -m repro_torch.experiments run campus_walk_vs_fixed \\
         --set strategy=fixed:0 --seeds 0,1 --set engine.rounds=10
     python -m repro_torch.experiments run sweep_smoke --device cpu \
-        --executor vmap --trace out/trace.jsonl
+        --trace out/trace.jsonl
     python -m repro_torch.experiments run sweep_smoke --device cpu \
         --checkpoint out/ck --stop-after 2
     python -m repro_torch.experiments run sweep_smoke --device cpu \
@@ -18,8 +18,7 @@
 
 ``NAME`` is a preset (``list`` shows them) or a path to a spec JSON
 (written by ``show`` / ``--dump``).  ``--set`` takes dotted spec paths.
-``run`` runs every seed as a sweep (``--executor vmap`` by default, or
-``sequential``); a single seed with ``--executor sequential`` or an
+``run`` runs every seed as a lockstep sweep; a single seed with an
 ``engine.mesh_shape``, and no checkpoint flag, runs through the engine
 with per-round lines.
 ``--checkpoint DIR`` keeps full-state snapshots (every
@@ -152,8 +151,8 @@ def _run(args, lead: bool):
     out = print if lead else (lambda *a, **k: None)
     # a sharded spec of one seed runs through the engine, whose executor
     # shards the fused round
-    engine_run = len(spec.run_seeds) == 1 and not args.checkpoint and (
-        args.executor == "sequential" or spec.engine.mesh_shape is not None)
+    engine_run = len(spec.run_seeds) == 1 and not args.checkpoint \
+        and spec.engine.mesh_shape is not None
     try:
         if spec.model.kind == "lm":
             res = run_one(spec, device=args.device, trace=trace)
@@ -165,8 +164,8 @@ def _run(args, lead: bool):
                           callbacks=(lambda r: out(_round_line(r)),))
             out(_final_line(spec.name, spec.run_seeds[0], res))
             return 0
-        result = sweep(spec, executor=args.executor, device=args.device,
-                       trace=trace, checkpoint_dir=args.checkpoint,
+        result = sweep(spec, device=args.device, trace=trace,
+                       checkpoint_dir=args.checkpoint,
                        checkpoint_every=args.checkpoint_every,
                        resume=args.resume, stop_after=args.stop_after)
     finally:
@@ -227,8 +226,6 @@ def main(argv=None):
                            help="torch device (default cuda; a CPU run "
                                 "must be asked for: --device cpu)")
         if cmd == "run":
-            p.add_argument("--executor", default="vmap",
-                           choices=("vmap", "sequential"))
             p.add_argument("--trace", help="JSONL trace output path")
             p.add_argument("--dump", help="write the resolved spec JSON")
             p.add_argument("--checkpoint", help="full-state snapshot dir")

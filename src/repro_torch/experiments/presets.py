@@ -103,7 +103,7 @@ def sweep_smoke() -> ExperimentSpec:
 
 @register_experiment("sweep_bench")
 def sweep_bench() -> ExperimentSpec:
-    """The 8-seed sweep the vmap-vs-sequential benchmark times
+    """The 8-seed sweep the reference's sweep benchmark times
     (``benchmarks/sweep_bench.py`` -> BENCH_sweep.json)."""
     return ExperimentSpec(
         name="sweep_bench",

@@ -9,9 +9,9 @@ Counterpart of ``repro.experiments.run``.
     sweep = experiments.sweep([spec_a, spec_b], device="cpu")  # a grid
     sweep.stats()
 
-``sweep`` executes every seed of every spec: device work batched across
-seeds by the :class:`~repro_torch.experiments.sweep.VmapSweepExecutor` by
-default (``executor="sequential"`` runs each seed as ``run`` does).
+``sweep`` executes every seed of every spec in round lockstep, each seed
+through its own engine as ``run`` has it
+(:class:`~repro_torch.experiments.sweep.SequentialSweepExecutor`).
 ``checkpoint_dir`` / ``checkpoint_every`` add full-state snapshots;
 ``resume=True`` continues a killed sweep to results identical to an
 uninterrupted one.  Both run on ``device`` (``"cuda"`` by default; a CPU
@@ -26,7 +26,8 @@ from repro_torch.core.api import RunResult
 from repro_torch.experiments.build import build_context
 from repro_torch.experiments.lm import run_lm
 from repro_torch.experiments.spec import ExperimentSpec, get_experiment
-from repro_torch.experiments.sweep import SweepResult, get_sweep_executor
+from repro_torch.experiments.sweep import (SequentialSweepExecutor,
+                                           SweepResult)
 from repro_torch.experiments.trace import TraceSink, round_record
 
 SpecLike = Union[str, dict, ExperimentSpec]
@@ -66,8 +67,7 @@ def run(spec: SpecLike, *, seed: Optional[int] = None, device="cuda",
                       loss_fn=ctx.loss_fn, eval_fn=ctx.eval_fn)
 
 
-def sweep(specs: Union[SpecLike, Sequence[SpecLike]], *,
-          executor="vmap", device="cuda",
+def sweep(specs: Union[SpecLike, Sequence[SpecLike]], *, device="cuda",
           trace: Optional[TraceSink] = None,
           checkpoint_dir=None, checkpoint_every: int = 0,
           resume: bool = False,
@@ -75,8 +75,7 @@ def sweep(specs: Union[SpecLike, Sequence[SpecLike]], *,
     """Run every seed of one spec, or of a whole spec grid, on ``device``
     and return a typed :class:`SweepResult`.
 
-    With multiple specs, each spec's seed axis is swept in turn (the
-    batch axis is per spec: different specs may have different shapes);
+    With multiple specs, each spec's seeds are swept in turn;
     checkpoints go to ``checkpoint_dir/<spec.name>``.
     """
     if isinstance(specs, (str, dict, ExperimentSpec)):
@@ -95,9 +94,9 @@ def sweep(specs: Union[SpecLike, Sequence[SpecLike]], *,
         if checkpoint_dir is not None:
             ckpt = checkpoint_dir if len(specs) == 1 else \
                 os.path.join(checkpoint_dir, spec.name)
-        ex = get_sweep_executor(executor, checkpoint_dir=ckpt,
-                                checkpoint_every=checkpoint_every,
-                                resume=resume, stop_after=stop_after)
+        ex = SequentialSweepExecutor(checkpoint_dir=ckpt,
+                                     checkpoint_every=checkpoint_every,
+                                     resume=resume, stop_after=stop_after)
         ctx = build_context(spec, device=device)
         part = ex.run_sweep(ctx, trace=trace)
         result = part if result is None else result.merged(part)

@@ -145,7 +145,7 @@ class EngineSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentSpec:
-    """One experiment cell; ``seeds`` is the (vmappable) sweep axis."""
+    """One experiment cell; ``seeds`` is the sweep axis."""
     name: str = "custom"
     model: ModelSpec = ModelSpec()
     data: DataSpec = DataSpec()

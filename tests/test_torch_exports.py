@@ -46,6 +46,9 @@ DECIDED = {
         "ParamPlane": "imported by the reference's ops, in "
                       "repro_torch.kernels",
     },
+    "experiments": {n: "the vmap sweep: same bits as the sequential "
+                       "executor, no win on the H100 (PR 17)" for n in (
+        "VmapSweepExecutor", "get_sweep_executor")},
     "training": {n: "training/optim.py: no caller on the port's paths"
                  for n in ("adamw", "sgd")},
     "sharding": _POD_SPECS,

@@ -106,7 +106,7 @@ def test_fused_round_matches_jax():
     assert abs(float(tacc) - float(jacc)) * len(ey) <= 1
 
 
-def test_unfused_group_and_aggregation_match_jax():
+def test_unfused_group_and_aggregation_match_jax(monkeypatch):
     p0, datasets, _ = _world()
     jplane, keys, jd, args = _jax_staged(p0, datasets)
     jres = jfp._local_train_batched_plane(
@@ -115,9 +115,12 @@ def test_unfused_group_and_aggregation_match_jax():
 
     tplane = TPlane.from_numpy(p0, device="cpu")
     staged = _torch_staged(args)
-    tres = tfp._train_group_plane(
-        tplane, tcls.classifier_loss, (staged[2], staged[3], staged[4]),
-        list(SIZES), gamma=GAMMA, m_frac=M_FRAC, eta=ETA, mu=MU)
+    # the group's mini-batches are the JAX package's draws
+    monkeypatch.setattr(tfp, "_draw_indices",
+                        lambda *a: (staged[3], staged[4]))
+    tres = tfp.local_train_batched(
+        tplane, tcls.classifier_loss, datasets, gamma=GAMMA, m_frac=M_FRAC,
+        eta=ETA, mu=MU, generator=torch.Generator())
 
     for j, t in zip(jres, tres):
         np.testing.assert_allclose(t.params.data.numpy(),

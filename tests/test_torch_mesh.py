@@ -253,3 +253,64 @@ def test_mesh_step_cache_is_keyed_on_the_round_shape():
     assert mesh._get_step(tcls.classifier_loss, 3, 64, 2, 0.01, 0.1) is a
     assert mesh._get_step(tcls.classifier_loss, 4, 64, 2, 0.01, 0.1) is not a
     assert len(mesh._cache) == 2
+
+
+def _old_mesh_batch(datasets, layout):
+    """``MeshExecutor.stage``'s batch as its own staging loop built it:
+    one zero-padded ``(n, 1, bucket, ...)`` stack per field, each live
+    DPU copied in."""
+    batch = {}
+    for name, first in datasets[layout.dpus[0]].items():
+        first = torch.as_tensor(first)
+        stack = torch.zeros((len(layout.dpus), 1, layout.bucket)
+                            + tuple(first.shape[1:]), dtype=first.dtype)
+        for j, (i, D) in enumerate(zip(layout.dpus, layout.sizes)):
+            stack[j, 0, :D].copy_(torch.as_tensor(datasets[i][name]))
+        batch[name] = stack
+    return batch
+
+
+@pytest.mark.parametrize("sizes", [(40, 40, 40, 40), (30, 57, 12, 64)],
+                         ids=["equal", "ragged"])
+def test_mesh_stage_is_the_sim_staging(sizes):
+    """``MeshExecutor.stage`` stages through ``fedprox._stack_data``: the
+    batch equals the old layout bit for bit, zero padding included, over
+    the live DPUs only (a DPU with no dataset and an empty one are
+    left out), and the host bytes of every field are counted once as
+    ``h2d_bytes`` of the open span."""
+    from repro_torch import tracing
+
+    rng = np.random.RandomState(3)
+    datasets = [{"x": rng.normal(size=(D, 8, 8, 1)).astype(np.float32) + 1,
+                 "y": rng.randint(1, 10, D).astype(np.int32)}
+                for D in sizes]
+    datasets.insert(1, None)
+    datasets.insert(3, {"x": np.zeros((0, 8, 8, 1), np.float32),
+                        "y": np.zeros((0,), np.int32)})
+    n = len(datasets)
+    zeros = {k: np.zeros(s, np.float32) for k, s in (
+        ("rho_nb", (3, 2)), ("rho_bs", (2, 3)), ("f_n", 3), ("z_s", 3),
+        ("I_s", 3), ("I_nb", (3, 2)), ("I_bn", (2, 3)), ("R_bs", (2, 3)),
+        ("delta_A", ()), ("delta_R", ()))}
+    plan = tapi.RoundPlan.from_w(dict(
+        zeros, gamma=np.arange(n) % 3 + 1.0,
+        m=np.linspace(0.2, 1.0, n)))
+    layout = tengine.mesh_layout(plan, datasets)
+    assert layout.dpus == [0, 2, 4, 5]
+    tracing.clear()
+    tracing.enable()
+    try:
+        with tracing.span("stage"):
+            staged = tengine.MeshExecutor().stage(
+                plan, datasets, agg="cefl", theta=None, device="cpu")
+        (rec,) = tracing.spans()
+    finally:
+        tracing.disable()
+        tracing.clear()
+    want = _old_mesh_batch(datasets, layout)
+    assert list(staged.batch) == list(want) == ["x", "y"]
+    for k, v in want.items():
+        assert staged.batch[k].dtype == v.dtype
+        assert torch.equal(staged.batch[k], v), k
+    assert rec.attrs == {"h2d_bytes": sum(
+        datasets[i][k].nbytes for i in layout.dpus for k in ("x", "y"))}

@@ -101,7 +101,7 @@ def world4():
                               **ROUND_KW)),
         (P.engine_worker, dict(meshes=[(2, 2), (4, 1)])),
         (P.mesh_executor_worker, dict(mesh=(2, 2), world=SMALL_WORLD)),
-        (P.cli_worker, dict(argvs=[CLI_RUN + ["--executor", "sequential"],
+        (P.cli_worker, dict(argvs=[CLI_RUN,
                                    CLI_RUN + ["--set", "mesh_shape=2,2"]])),
     ], backend="gloo", device="cpu")
     return dict(zip(["mesh", "ops", "round", "engine", "mesh_executor",
@@ -334,13 +334,15 @@ def test_mesh_executor_sharded_plane_allclose(request, world, shape):
 
 def test_cli_runs_a_sharded_spec(world4):
     """``--set mesh_shape=2,2`` under a group of 4: rank 0 alone prints,
-    every round runs sharded, and the lines equal the single-device
-    run's."""
+    every round runs sharded through the engine (a header, a line a
+    round and the result line), and the result line equals the one the
+    unsharded spec's sweep prints first."""
     single, sharded = world4["cli"]
     assert sharded["fused_rounds"] == 2 and single["fused_rounds"] == 0
     assert sharded["silent_ranks"] and single["silent_ranks"]
-    assert sharded["stdout"].splitlines() == single["stdout"].splitlines()
-    assert len(sharded["stdout"].splitlines()) == 4
+    lines = sharded["stdout"].splitlines()
+    assert len(lines) == 4
+    assert lines[-1] == single["stdout"].splitlines()[0]
 
 
 def test_spec_carries_mesh_shape():
