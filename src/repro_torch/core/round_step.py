@@ -44,8 +44,8 @@ import torch
 from repro_torch import tracing
 from repro_torch.device import require_device
 from repro_torch.kernels import ops
-from repro_torch.kernels.plane import (ParamPlane, tree_from_paths,
-                                      tree_paths)
+from repro_torch.kernels.plane import (ParamPlane, grad_plane_bytes,
+                                      tree_from_paths, tree_paths)
 
 F32 = torch.float32
 
@@ -126,7 +126,10 @@ def build_cefl_round_step(loss_fn: Callable, hyper: CEFLHyper):
         """Per local step: one forward pass over the (n, mb) stack, one
         autograd.grad, one fedprox_accum launch; then d = acc / ||a||_1
         and one nova_aggregate_stacked launch.  Traced as ``round_step``
-        with ``round_step.forward`` / ``round_step.backward`` spans."""
+        with ``round_step.forward`` / ``round_step.backward`` spans; the
+        backward counts ``grad_plane_bytes``, the bytes it wrote into
+        gradient planes, and ``plane_bytes``, those of the plane it
+        returned."""
         with tracing.span("round_step", round=next(calls)):
             return _round_step_plane(plane, batch, meta)
 
@@ -141,9 +144,10 @@ def build_cefl_round_step(loss_fn: Callable, hyper: CEFLHyper):
 
         def grad(p):
             """Mean loss and gradient over the n_micro microbatches,
-            per DPU: (n,), (n, R, LANE)."""
+            per DPU: (n,), (n, R, LANE).  The gradient sums into the
+            first microbatch's plane."""
             loss_s = torch.zeros(p.shape[0], dtype=F32, device=p.device)
-            g_acc = torch.zeros_like(p)
+            g_acc = None
             for micro in micros:
                 leaf = p.detach().requires_grad_(True)
                 with torch.enable_grad():
@@ -152,10 +156,17 @@ def build_cefl_round_step(loss_fn: Callable, hyper: CEFLHyper):
                                          micro, mask)
                     total = losses.sum()
                     with tracing.span("round_step.backward"):
+                        written = grad_plane_bytes()
                         (gp,) = torch.autograd.grad(total, leaf)
+                        tracing.count("grad_plane_bytes",
+                                      grad_plane_bytes() - written)
+                        tracing.count("plane_bytes",
+                                      gp.numel() * gp.element_size())
                 loss_s = loss_s + losses.detach()
-                g_acc = g_acc + gp
-            return loss_s * inv, g_acc * inv
+                g_acc = gp if g_acc is None else g_acc.add_(gp)
+            if n_micro > 1:
+                g_acc.mul_(inv)
+            return loss_s * inv, g_acc
 
         p, acc = p0, torch.zeros_like(p0)
         losses = None

@@ -17,6 +17,7 @@ ordered by sorted key, recursively, which is the leaf order
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Tuple
 
 import numpy as np
@@ -89,7 +90,7 @@ class FlatSpec:
     rows: int                    # padded row count (R)
 
     def _sizes(self):
-        return [int(np.prod(s)) if s else 1 for s in self.shapes]
+        return [math.prod(s) for s in self.shapes]
 
     def flatten(self, tree) -> torch.Tensor:
         """Dict tree -> (R, LANE) f32 plane (zero padding past ``n``), on
@@ -113,13 +114,113 @@ class FlatSpec:
         return tree_from_paths(self.paths, leaves)
 
     def unflatten_batched(self, planes: torch.Tensor) -> dict:
-        """(G, R, LANE) -> dict tree whose leaves carry the leading G axis."""
+        """(G, R, LANE) -> dict tree whose leaves carry the leading G axis
+        (views).
+
+        Under autograd the views write the stack's gradient once: each
+        leaf's gradient goes into its own slice of one plane as the
+        backward produces it, and only what no gradient reached (a leaf
+        the loss does not use, the padding past ``n``) is zeroed.  Plain
+        slices would each hand back a whole zero-filled plane for autograd
+        to sum: a fill and an add of the plane per leaf."""
+        cuts = list(zip(self.offsets, self._sizes(), self.shapes))
         G = planes.shape[0]
-        flat = planes.reshape(G, -1)
-        leaves = [flat[:, off:off + k].reshape((G,) + shape).to(dtype)
-                  for shape, dtype, off, k in zip(
-                      self.shapes, self.dtypes, self.offsets, self._sizes())]
-        return tree_from_paths(self.paths, leaves)
+        if torch.is_grad_enabled() and planes.requires_grad:
+            grad = _PlaneGrad(self.n, cuts, tuple(planes.shape))
+            flat = _Alias.apply(planes, grad)
+            leaves = [_LeafView.apply(flat, grad, i)
+                      for i in range(len(cuts))]
+        else:
+            flat = planes.reshape(G, -1)
+            leaves = [flat.narrow(1, off, k).view((G,) + shape)
+                      for off, k, shape in cuts]
+        return tree_from_paths(self.paths, [
+            x.to(dtype) for x, dtype in zip(leaves, self.dtypes)])
+
+
+# -- the gradient plane of the leaf views -----------------------------------
+
+_grad_plane_bytes = 0
+
+
+def grad_plane_bytes() -> int:
+    """Bytes the backward passes of :meth:`FlatSpec.unflatten_batched`'s
+    views have written into gradient planes since import: one plane a
+    backward.  Autograd's thread adds to it; read it on the host after
+    ``torch.autograd.grad`` returns."""
+    return _grad_plane_bytes
+
+
+class _PlaneGrad:
+    """One backward's gradient plane, written leaf by leaf.  Each leaf's
+    gradient is stored as ``g + 0.0``, the value the sum of zero-filled
+    planes gives it (that sum turns -0.0 into +0.0).  The plane is not
+    differentiable: under ``create_graph`` the ``out=`` write refuses a
+    gradient that requires grad."""
+
+    def __init__(self, n: int, cuts: list, shape: tuple):
+        self.n, self.cuts, self.shape = n, cuts, shape
+        self.cols = None          # the plane as (G, R * LANE) while written
+        self.dsts: tuple = ()     # its slices, one a leaf, then the padding
+        self.written: set = set()
+
+    def write(self, i: int, g: torch.Tensor) -> None:
+        if self.cols is None:
+            self.cols = g.new_empty(self.shape).view(self.shape[0], -1)
+            self.dsts = self.cols.split([k for _, k, _ in self.cuts]
+                                        + [self.cols.shape[1] - self.n], 1)
+        torch.add(g, 0.0, out=self.dsts[i].view(g.shape))
+        self.written.add(i)
+
+    def finish(self) -> torch.Tensor:
+        """The plane, with the slices no leaf wrote zeroed.  Hands it
+        over, so that the next backward starts afresh."""
+        global _grad_plane_bytes
+        cols, dsts, written = self.cols, self.dsts, self.written
+        self.cols, self.dsts, self.written = None, (), set()
+        if cols is None:
+            return None
+        for i, dst in enumerate(dsts):          # the last is the padding
+            if i not in written:
+                dst.zero_()
+        _grad_plane_bytes += cols.numel() * cols.element_size()
+        return cols.view(self.shape)
+
+
+class _Alias(torch.autograd.Function):
+    """planes -> their ``(G, R * LANE)`` view: the node every leaf view's
+    backward feeds, whose backward returns the plane they wrote."""
+
+    @staticmethod
+    def forward(ctx, planes, grad):
+        ctx.set_materialize_grads(False)
+        ctx.grad = grad
+        return planes.reshape(planes.shape[0], -1)
+
+    @staticmethod
+    def backward(ctx, _):
+        # the leaf views pass nothing on: their gradients are in the plane
+        return ctx.grad.finish(), None
+
+
+class _LeafView(torch.autograd.Function):
+    """Leaf ``i`` as a view of the ``(G, R * LANE)`` stack; its backward
+    writes the leaf's gradient into its slice of the gradient plane and
+    passes nothing on (the stack's gradient leaves through
+    :class:`_Alias`)."""
+
+    @staticmethod
+    def forward(ctx, flat, grad, i):
+        ctx.set_materialize_grads(False)
+        ctx.grad, ctx.i = grad, i
+        off, k, shape = grad.cuts[i]
+        return flat.narrow(1, off, k).view((flat.shape[0],) + shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is not None:
+            ctx.grad.write(ctx.i, g)
+        return None, None, None
 
 
 def spec_of(tree) -> FlatSpec:
