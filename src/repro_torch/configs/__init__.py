@@ -8,7 +8,7 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    INPUT_SHAPES, ModelConfig, MoEConfig, SSMConfig, ShapeConfig, reduced,
+    INPUT_SHAPES, MLAConfig, ModelConfig, MoEConfig, SSMConfig, ShapeConfig, reduced,
 )
 
 ARCH_IDS = [
@@ -23,6 +23,7 @@ ARCH_IDS = [
     "llama4-maverick-400b-a17b",
     "llama3-405b",
     "nemotron3-nano-30b-a3b",
+    "moonlight-16b-a3b",
 ]
 
 _MODULES = {
@@ -37,6 +38,7 @@ _MODULES = {
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "llama3-405b": "llama3_405b",
     "nemotron3-nano-30b-a3b": "nemotron3_nano_30b_a3b",
+    "moonlight-16b-a3b": "moonlight_16b_a3b",
     "cefl-paper": "cefl_paper",
 }
 

@@ -12,6 +12,41 @@ import dataclasses
 from typing import Optional
 
 
+# the expert kinds the drop-free routed layer runs
+DROPLESS_ACTS = ("relu2", "swiglu")
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2/V3) without a query LoRA:
+    q = h W_q per head, split into a ``qk_nope_head_dim`` part and a
+    ``qk_rope_head_dim`` part; [c, k_pe] = h W_kva with c the
+    ``kv_lora_rank``-wide latent, RMS-normed; [k_nope, v] = c W_kvb per
+    head; RoPE on q's rope part and on the one k_pe every head shares."""
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    q_lora_rank: Optional[int] = None
+
+    def __post_init__(self):
+        if self.q_lora_rank is not None:
+            raise ValueError("MLA with a query LoRA is not ported")
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    def param_count(self, d: int, heads: int) -> int:
+        """W_q, W_kva, the latent's norm, W_kvb and W_o."""
+        return (d * heads * self.qk_head_dim
+                + d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                + self.kv_lora_rank
+                + self.kv_lora_rank * heads
+                * (self.qk_nope_head_dim + self.v_head_dim)
+                + heads * self.v_head_dim * d)
+
+
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
     num_experts: int
@@ -25,18 +60,21 @@ class MoEConfig:
     aux_loss: float = 1e-2
     expert_act: str = "swiglu"     # swiglu (3 mats) | relu2 (2 mats)
     # --- the drop-free routed layer (``moe.dropless_forward``): sigmoid
-    # scores, relu² experts, every pair computed ---
+    # scores, relu² or SwiGLU experts, every pair computed ---
     dropless: bool = False
     routed_scale: float = 1.0      # gates x this after top-k normalisation
     # this chip's share under expert parallelism: experts expert_offset ..
     # expert_offset + held_experts - 1 of num_experts (None: all held)
     held_experts: Optional[int] = None
     expert_offset: int = 0
+    # the shared expert's width (None: the config's d_ff)
+    shared_ff: Optional[int] = None
 
     def __post_init__(self):
-        if self.dropless and self.expert_act != "relu2":
-            raise ValueError("the drop-free routed layer runs relu² "
-                             f"experts, not {self.expert_act}")
+        if self.dropless and self.expert_act not in DROPLESS_ACTS:
+            raise ValueError("the drop-free routed layer runs "
+                             f"{' or '.join(DROPLESS_ACTS)} experts, not "
+                             f"{self.expert_act}")
 
     @property
     def held(self) -> int:
@@ -83,6 +121,10 @@ class ModelConfig:
     # norm, no mixer) repeated cyclically over layers
     layer_pattern: str = "A"
     rope: bool = True              # False: attention without positions
+    mla: Optional[MLAConfig] = None  # latent attention in every 'A' layer
+    # dense attention + MLP layers before the pattern starts (DeepSeek-V3's
+    # first_k_dense_replace); they hold no MoE and are not stacked
+    first_dense: int = 0
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # --- enc-dec (whisper) ---
@@ -104,6 +146,11 @@ class ModelConfig:
         return self.encoder_layers > 0
 
     def pattern_for_layer(self, i: int) -> str:
+        """The kind of layer ``i``: a leading dense layer is attention,
+        the pattern starts after them."""
+        if i < self.first_dense:
+            return "A"
+        i -= self.first_dense
         return self.layer_pattern[i % len(self.layer_pattern)]
 
     @property
@@ -118,7 +165,9 @@ class ModelConfig:
         n_layers = self.num_layers
         for i in range(n_layers):
             kind = self.pattern_for_layer(i)
-            if kind == "A":
+            if kind == "A" and self.mla is not None:
+                total += self.mla.param_count(d, self.num_heads)
+            elif kind == "A":
                 qkv = d * self.num_heads * self.head_dim + 2 * d * self.num_kv_heads * self.head_dim
                 o = self.num_heads * self.head_dim * d
                 total += qkv + o
@@ -136,7 +185,8 @@ class ModelConfig:
                 total += m.num_experts * e_mats * d * m.expert_ff
                 total += d * m.num_experts  # router
                 if m.dense_residual or m.shared_expert:
-                    total += n_mats * d * (self.d_ff or m.expert_ff)
+                    total += n_mats * d * (m.shared_ff or self.d_ff
+                                           or m.expert_ff)
             elif self.d_ff and "E" not in self.layer_pattern:
                 total += n_mats * d * self.d_ff
             total += (1 if "E" in self.layer_pattern else 2) * d  # norms
@@ -149,11 +199,14 @@ class ModelConfig:
 
     def layer_uses_moe(self, i: int) -> bool:
         """Layer ``i`` routes to experts: every 'E' layer of a pattern
-        with them, else every ``every_n_layers``-th layer."""
+        with them, else every ``every_n_layers``-th layer after the
+        leading dense ones."""
+        if i < self.first_dense:
+            return False
         if "E" in self.layer_pattern:
             return self.pattern_for_layer(i) == "E"
         n = self.moe.every_n_layers
-        return i % n == n - 1
+        return (i - self.first_dense) % n == n - 1
 
     def active_param_count(self) -> int:
         """Params active per token (MoE: top_k experts only)."""
@@ -212,7 +265,13 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
         kw["moe"] = dataclasses.replace(
             cfg.moe, num_experts=4, top_k=min(cfg.moe.top_k, 2), expert_ff=128,
             every_n_layers=min(cfg.moe.every_n_layers, 2), held_experts=None,
-            expert_offset=0)
+            expert_offset=0, shared_ff=None if cfg.moe.shared_ff is None
+            else min(cfg.moe.shared_ff, 256))
+    if cfg.mla is not None:
+        kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_head_dim=16,
+                              qk_rope_head_dim=16, v_head_dim=16)
+    if cfg.first_dense:
+        kw["first_dense"] = 1      # one dense layer, then one of the pattern
     if cfg.ssm is not None:
         groups = min(cfg.ssm.n_groups, 2)
         kw["ssm"] = dataclasses.replace(

@@ -20,6 +20,7 @@ from typing import List, Sequence
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import normalize_weights
 from repro_torch.kernels.plane import ParamPlane, as_plane
@@ -81,11 +82,22 @@ def robust_aggregate(x_t, d_list: List, *, theta: float, eta: float,
     """eq. 11 with the weighted sum replaced by a coordinate-wise trimmed
     mean / median over the d_i stack, the byzantine counter
     (``EngineOptions.robust_agg``).  Takes NO weights: the D_i a
-    compromised client reports are not trusted."""
+    compromised client reports are not trusted.  Traced as a
+    ``robust.aggregate`` span with the stack's n, the plane's rows R and
+    the per-side trim k (0 for the median)."""
     x_t = as_plane(x_t)
-    out = ops.robust_aggregate_plane(x_t.data, _stack_planes(d_list),
-                                     theta * eta, mode=mode,
-                                     trim_frac=trim_frac)
+    stack = _stack_planes(d_list)
+    token = tracing.begin("robust.aggregate")
+    if token is not None:
+        k = ops.robust_kwargs(stack.shape[0], mode, trim_frac)["k"]
+        for key, v in (("n", stack.shape[0]), ("R", stack.shape[1]),
+                       ("k", k)):
+            tracing.annotate(token, key, v)
+    try:
+        out = ops.robust_aggregate_plane(x_t.data, stack, theta * eta,
+                                         mode=mode, trim_frac=trim_frac)
+    finally:
+        tracing.end(token)
     return x_t.with_data(out)
 
 

@@ -59,8 +59,11 @@ def build_lm_step(cfg: ModelConfig, m: ModelSpec, *, eta: float, mu: float):
     loop (the round step's batched convention: params with a leading DPU
     axis give ``(n,)`` losses), theta = gamma (tau_eff compensation).
     With a drop-free MoE, a round that tracing records ends with one host
-    read of its routing counts (``models.moe.flush_counts``)."""
-    blk = min(512, m.seq)
+    read of its routing counts (``models.moe.flush_counts``).  Attention
+    runs in tiles of seq / 8 positions, at least 512: at 8,192 positions
+    512-wide tiles (136 a causal layer) left the card idle a third of the
+    time waiting on the host's launches (PERF.md)."""
+    blk = min(max(512, m.seq // 8), m.seq)
 
     def loss_fn(p, micro, mask):
         return torch.stack([

@@ -71,7 +71,9 @@ def _q_tile(q5, qs, qb):
 def _blocked_attention_fwd_only(q, k, v, *, causal=True, window=None,
                                 q_block=512, kv_block=512):
     """Online-softmax attention over (q_block x kv_block) tiles.  Returns
-    (out (B, S, Hq, D) in q's dtype, lse (B, Hkv, G, S) f32).
+    (out (B, S, Hq, Dv) in q's dtype, lse (B, Hkv, G, S) f32), Dv v's
+    head dim (latent attention's differs from q's and k's D; the scale is
+    1/sqrt(D)).
 
     Scores q.k are summed in f32 (bf16 operands multiplied exactly), p.v
     in f32.  A tile that the masks cover entirely is skipped: the JAX
@@ -79,19 +81,19 @@ def _blocked_attention_fwd_only(q, k, v, *, causal=True, window=None,
     valid key, terms that the next valid tile scales by exp(-1e30 - m) =
     0), so the result is the same."""
     B, S, Hq, D = q.shape
-    S_kv, Hkv = k.shape[1], k.shape[2]
+    S_kv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = Hq // Hkv
     qb, kb = _fit(S, q_block), _fit(S_kv, kv_block)
     scale = _scale(D)
     dev = q.device
-    out = torch.empty((B, S, Hkv, G, D), dtype=torch.float32, device=dev)
+    out = torch.empty((B, S, Hkv, G, Dv), dtype=torch.float32, device=dev)
     lse = torch.empty((B, Hkv, G, S), dtype=torch.float32, device=dev)
     q5 = q.reshape(B, S, Hkv, G, D)
     pos = torch.arange(max(S, S_kv), device=dev)
     for qs in range(0, S, qb):
         qq = _q_tile(q5, qs, qb)
         qpos = pos[qs:qs + qb]
-        acc = torch.zeros((B, Hkv, G, qb, D), dtype=torch.float32,
+        acc = torch.zeros((B, Hkv, G, qb, Dv), dtype=torch.float32,
                           device=dev)
         m = torch.full((B, Hkv, G, qb), NEG_INF, dtype=torch.float32,
                        device=dev)
@@ -99,19 +101,20 @@ def _blocked_attention_fwd_only(q, k, v, *, causal=True, window=None,
         for ks in range(0, S_kv, kb):
             if _masked(qs, qb, ks, kb, causal, window):
                 continue
-            vv = v[:, ks:ks + kb].permute(0, 2, 1, 3).reshape(B * Hkv, kb, D)
+            vv = v[:, ks:ks + kb].permute(0, 2, 1, 3).reshape(B * Hkv, kb,
+                                                              Dv)
             s = _tile_scores(qq, k, ks, kb, qpos, pos, causal, window, scale)
             m_new = torch.maximum(m, torch.amax(s, dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             lsum = lsum * corr + torch.sum(p, dim=-1)
             pv = torch.bmm(p.view(B * Hkv, G * qb, kb), vv.float())
-            acc = acc * corr[..., None] + pv.view(B, Hkv, G, qb, D)
+            acc = acc * corr[..., None] + pv.view(B, Hkv, G, qb, Dv)
             m = m_new
         blk = acc / torch.clamp(lsum[..., None], min=1e-30)
         out[:, qs:qs + qb] = blk.permute(0, 3, 1, 2, 4)
         lse[..., qs:qs + qb] = m + torch.log(torch.clamp(lsum, min=1e-30))
-    return out.reshape(B, S, Hq, D).to(q.dtype), lse
+    return out.reshape(B, S, Hq, Dv).to(q.dtype), lse
 
 
 def _flash_bwd(q, k, v, out, lse, dout, causal, window, q_block, kv_block):
@@ -120,29 +123,30 @@ def _flash_bwd(q, k, v, out, lse, dout, causal, window, q_block, kv_block):
     rowsum(dout * out) in f32; dq accumulated over kv blocks, dk / dv over
     q blocks and over the G query heads of each KV head, in f32, each cast
     to its input's dtype.  Tiles that the masks cover entirely are skipped
-    (the JAX package adds exact zeros there)."""
+    (the JAX package adds exact zeros there).  v's head dim may differ
+    from q's and k's (latent attention)."""
     B, S, Hq, D = q.shape
-    S_kv, Hkv = k.shape[1], k.shape[2]
+    S_kv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     G = Hq // Hkv
     qb, kb = _fit(S, q_block), _fit(S_kv, kv_block)
     scale = _scale(D)
     dev = q.device
     f32 = torch.float32
     q5 = q.reshape(B, S, Hkv, G, D)
-    do5 = dout.reshape(B, S, Hkv, G, D)
+    do5 = dout.reshape(B, S, Hkv, G, Dv)
     # delta_i = rowsum(dout * out): (B, Hkv, G, S)
     delta = torch.einsum("bskgd,bskgd->bkgs", do5.to(f32),
-                         out.reshape(B, S, Hkv, G, D).to(f32))
+                         out.reshape(B, S, Hkv, G, Dv).to(f32))
     pos = torch.arange(max(S, S_kv), device=dev)
     dq = torch.zeros((B * Hkv, S // qb, G * qb, D), dtype=f32, device=dev)
     dk = torch.empty((B, S_kv, Hkv, D), dtype=f32, device=dev)
-    dv = torch.empty((B, S_kv, Hkv, D), dtype=f32, device=dev)
+    dv = torch.empty((B, S_kv, Hkv, Dv), dtype=f32, device=dev)
     for ks in range(0, S_kv, kb):
         kk = k[:, ks:ks + kb].permute(0, 2, 1, 3).reshape(B * Hkv, kb, D)
-        vv = v[:, ks:ks + kb].permute(0, 2, 1, 3).reshape(B * Hkv, kb, D)
+        vv = v[:, ks:ks + kb].permute(0, 2, 1, 3).reshape(B * Hkv, kb, Dv)
         kk, vv = kk.to(f32), vv.to(f32)
         dk_j = torch.zeros((B * Hkv, kb, D), dtype=f32, device=dev)
-        dv_j = torch.zeros((B * Hkv, kb, D), dtype=f32, device=dev)
+        dv_j = torch.zeros((B * Hkv, kb, Dv), dtype=f32, device=dev)
         for i, qs in enumerate(range(0, S, qb)):
             if _masked(qs, qb, ks, kb, causal, window):
                 continue
@@ -151,7 +155,7 @@ def _flash_bwd(q, k, v, out, lse, dout, causal, window, q_block, kv_block):
                              window, scale)
             p = torch.exp(s - lse[..., qs:qs + qb, None])  # (B,Hkv,G,qb,kb)
             p = p.view(B * Hkv, G * qb, kb)
-            do = _q_tile(do5, qs, qb).to(f32)              # (B*Hkv,G*qb,D)
+            do = _q_tile(do5, qs, qb).to(f32)             # (B*Hkv,G*qb,Dv)
             dv_j += torch.bmm(p.transpose(1, 2), do)
             dp = torch.bmm(do, vv.transpose(1, 2))
             dlt = delta[..., qs:qs + qb].reshape(B * Hkv, G * qb, 1)
@@ -159,7 +163,7 @@ def _flash_bwd(q, k, v, out, lse, dout, causal, window, q_block, kv_block):
             dq[:, i] += torch.bmm(ds, kk)
             dk_j += torch.bmm(ds.transpose(1, 2), qq.to(f32))
         dk[:, ks:ks + kb] = dk_j.view(B, Hkv, kb, D).transpose(1, 2)
-        dv[:, ks:ks + kb] = dv_j.view(B, Hkv, kb, D).transpose(1, 2)
+        dv[:, ks:ks + kb] = dv_j.view(B, Hkv, kb, Dv).transpose(1, 2)
     # (B*Hkv, nq, G*qb, D) -> (B, S, Hq, D)
     dq = dq.view(B, Hkv, S // qb, G, qb, D).permute(0, 2, 4, 1, 3, 5)
     return (dq.reshape(B, S, Hq, D).to(q.dtype), dk.to(k.dtype),
@@ -192,8 +196,9 @@ def blocked_attention(q, k, v, *, causal: bool = True,
                       q_block: int = 512, kv_block: int = 512):
     """Memory-O(S * block) attention with online softmax.
 
-    q: (B, S, Hq, D); k, v: (B, S_kv, Hkv, D).  Returns (B, S, Hq, D) in
-    q's dtype.  ``causal``: mask keys after the query (the decoder); off
+    q, k: (B, S, Hq, D), (B, S_kv, Hkv, D); v: (B, S_kv, Hkv, Dv).
+    Returns (B, S, Hq, Dv) in q's dtype, the scores scaled by
+    1/sqrt(D).  ``causal``: mask keys after the query (the decoder); off
     for the encoder and cross-attention.  ``window``: keys with q_pos -
     k_pos >= window are masked.  Under autograd the backward is the flash
     backward (:func:`_flash_bwd`), which keeps only q, k, v, out and the

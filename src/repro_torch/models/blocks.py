@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.plane import tree_from_paths, tree_paths
@@ -54,11 +55,13 @@ def period_spec(cfg: ModelConfig) -> List[LayerSpec]:
 
 
 def num_periods(cfg: ModelConfig) -> int:
+    """Periods of the stack after the leading dense layers."""
     plen = len(period_spec(cfg))
-    if cfg.num_layers % plen:
-        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not a "
-                         f"whole number of {plen}-layer periods")
-    return cfg.num_layers // plen
+    n = cfg.num_layers - cfg.first_dense
+    if n % plen:
+        raise ValueError(f"{cfg.name}: {n} layers are not a whole number "
+                         f"of {plen}-layer periods")
+    return n // plen
 
 
 # ---------------------------------------------------------------- init ----
@@ -79,8 +82,27 @@ def init_attn_params(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
-def init_mlp_params(gen: torch.Generator, cfg: ModelConfig, dtype):
-    d, f = cfg.d_model, cfg.d_ff
+def init_mla_params(gen: torch.Generator, cfg: ModelConfig, dtype):
+    """Latent attention's weights (:func:`mla_forward`): ``wq`` (d, H,
+    qk), ``wkv_a`` (d, latent + rope), the latent's norm, ``wkv_b``
+    (latent, H, nope + v) and ``wo`` (H, v, d)."""
+    m, d, H = cfg.mla, cfg.d_model, cfg.num_heads
+    r = m.kv_lora_rank
+    wo = torch.randn((H, m.v_head_dim, d), generator=gen, device=gen.device)
+    return {
+        "wq": dense_init(gen, d, (H, m.qk_head_dim), dtype),
+        "wkv_a": dense_init(gen, d, (r + m.qk_rope_head_dim,), dtype),
+        "kv_norm": torch.zeros((r,), dtype=dtype, device=gen.device),
+        "wkv_b": dense_init(gen, r, (H, m.qk_nope_head_dim + m.v_head_dim),
+                            dtype),
+        "wo": (wo / float(np.sqrt(H * m.v_head_dim))).to(dtype),
+    }
+
+
+def init_mlp_params(gen: torch.Generator, cfg: ModelConfig, dtype,
+                    width=None):
+    """A dense MLP of ``width`` (default the config's d_ff)."""
+    d, f = cfg.d_model, width or cfg.d_ff
     p = {
         "w_in": dense_init(gen, d, (f,), dtype),
         "w_out": dense_init(gen, f, (d,), dtype),
@@ -95,16 +117,18 @@ def init_layer_params(gen: torch.Generator, cfg: ModelConfig,
     d = cfg.d_model
     p = {"ln1": torch.zeros((d,), dtype=dtype, device=gen.device)}
     if spec.kind == "A":
-        p["attn"] = init_attn_params(gen, cfg, dtype)
+        p["attn"] = init_mla_params(gen, cfg, dtype) if cfg.mla \
+            else init_attn_params(gen, cfg, dtype)
     elif spec.kind == "M":
         p["mamba"] = mamba_lib.init_mamba_params(gen, d, cfg.ssm, dtype)
     if (spec.use_moe and spec.kind != "E") or spec.has_mlp:
         p["ln2"] = torch.zeros((d,), dtype=dtype, device=gen.device)
     if spec.use_moe:
         p["moe"] = moe_lib.init_moe_params(gen, d, cfg.moe, dtype)
-    if spec.has_mlp or (spec.use_moe and (cfg.moe.dense_residual
-                                          or cfg.moe.shared_expert)):
+    if spec.has_mlp:
         p["mlp"] = init_mlp_params(gen, cfg, dtype)
+    elif spec.use_moe and (cfg.moe.dense_residual or cfg.moe.shared_expert):
+        p["mlp"] = init_mlp_params(gen, cfg, dtype, cfg.moe.shared_ff)
     return p
 
 
@@ -128,6 +152,17 @@ def stack_trees(trees: list) -> dict:
         for c in cols:
             c[j] = None
     return tree_from_paths(paths, leaves)
+
+
+# a leading dense layer (``cfg.first_dense`` of them, before the stacked
+# periods): attention and a dense MLP
+DENSE = LayerSpec("A", False, True)
+
+
+def init_lead_params(gen: torch.Generator, cfg: ModelConfig, dtype):
+    """The leading dense layers' params, ``{"layer_i": {...}}``, unstacked."""
+    return {f"layer_{i}": init_layer_params(gen, cfg, DENSE, dtype)
+            for i in range(cfg.first_dense)}
 
 
 def init_stacked_params(gen: torch.Generator, cfg: ModelConfig, dtype):
@@ -189,6 +224,40 @@ def attn_forward(p, x, cfg: ModelConfig, *, angles, causal=True,
     B, S = x.shape[:2]
     y = out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
     return y, (k, v)
+
+
+def mla_forward(p, x, cfg: ModelConfig, *, angles, q_block=512,
+                kv_block=512):
+    """Causal latent attention (DeepSeek-V3, no query LoRA) over x (B, S,
+    d): q = x W_q split per head into its nope and rope parts; [c, k_pe]
+    = x W_kva, c RMS-normed; [k_nope, v] = c W_kvb per head; RoPE on q's
+    rope part and on k_pe, which every head shares; softmax(q k^T /
+    sqrt(qk)) v through :func:`attention.blocked_attention` (v's head
+    narrower than q's), then W_o.  Traced as an ``attn.mla`` span (remat
+    recomputes too) with its tokens, S, heads and head dims."""
+    m, H = cfg.mla, cfg.num_heads
+    B, S, _ = x.shape
+    token = tracing.begin("attn.mla")
+    if token is not None:
+        for key, v in (("tokens", B * S), ("S", S), ("heads", H),
+                       ("qk", m.qk_head_dim), ("v", m.v_head_dim)):
+            tracing.annotate(token, key, v)
+    try:
+        nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+        q_nope, q_pe = _proj(x, p["wq"]).split([nope, rope], dim=-1)
+        c, k_pe = (x @ p["wkv_a"]).split([m.kv_lora_rank, rope], dim=-1)
+        c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
+        k_nope, v = _proj(c, p["wkv_b"]).split([nope, m.v_head_dim],
+                                               dim=-1)
+        k_pe = apply_rope(k_pe[:, :, None], angles).expand(B, S, H, rope)
+        q = torch.cat([q_nope, apply_rope(q_pe, angles)], dim=-1)
+        k = torch.cat([k_nope, k_pe], dim=-1)
+        out = attn_lib.blocked_attention(q, k, v.contiguous(), causal=True,
+                                         q_block=q_block, kv_block=kv_block)
+        y = out.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
+    finally:
+        tracing.end(token)
+    return y
 
 
 def attn_decode(p, x, cfg: ModelConfig, cache, pos: int, *, window=None,
@@ -272,8 +341,9 @@ def _ffn(params, x, cfg: ModelConfig, spec: LayerSpec, moe_kw):
             y = y + mlp_forward(params["mlp"], h, cfg)
         x = x + y
     elif spec.has_mlp:
-        h = rms_norm(x, params["ln2"], cfg.norm_eps)
-        x = x + mlp_forward(params["mlp"], h, cfg)
+        with tracing.span("mlp.dense"):
+            h = rms_norm(x, params["ln2"], cfg.norm_eps)
+            x = x + mlp_forward(params["mlp"], h, cfg)
     return x, aux
 
 
@@ -282,7 +352,8 @@ def layer_forward(params, x, cfg: ModelConfig, spec: LayerSpec, *, angles,
                   kv_block=512):
     """Full-sequence layer (training, prefill).  Returns (x, aux, kv,
     state): aux the MoE terms {"load_balance", "router_z"} (zeros without
-    an MoE); (k, v) of an attention layer, else None; the Mamba layer's
+    an MoE); (k, v) of an attention layer, else None (and None for latent
+    attention, which has no cache here); the Mamba layer's
     final {"h", "conv"} state with ``return_ssm_state``, else None.
     ``ssm_state`` starts a Mamba layer from a carried state."""
     if spec.kind == "E":
@@ -290,7 +361,10 @@ def layer_forward(params, x, cfg: ModelConfig, spec: LayerSpec, *, angles,
         return x, aux or _zero_aux(x.device), None, None
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     kv = new_state = None
-    if spec.kind == "A":
+    if spec.kind == "A" and cfg.mla is not None:
+        y = mla_forward(params["attn"], h, cfg, angles=angles,
+                        q_block=q_block, kv_block=kv_block)
+    elif spec.kind == "A":
         y, kv = attn_forward(params["attn"], h, cfg, angles=angles,
                              q_block=q_block, kv_block=kv_block)
     elif return_ssm_state:

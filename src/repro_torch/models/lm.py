@@ -56,8 +56,10 @@ def init_lm_params(gen: torch.Generator, cfg: ModelConfig, dtype=None):
     params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
-        "blocks": B.init_stacked_params(gen, cfg, dtype),
     }
+    if cfg.first_dense:
+        params["lead"] = B.init_lead_params(gen, cfg, dtype)
+    params["blocks"] = B.init_stacked_params(gen, cfg, dtype)
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
                                        dtype).T.contiguous()
@@ -119,7 +121,8 @@ def _angles(cfg: ModelConfig, S: int, device):
     attention without positions, ``cfg.rope`` False)."""
     if cfg.attn_free or cfg.is_encdec or not cfg.rope:
         return None
-    return rope_frequencies(cfg.head_dim, cfg.rope_theta,
+    dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.head_dim
+    return rope_frequencies(dim, cfg.rope_theta,
                             torch.arange(S, device=device))
 
 
@@ -195,9 +198,11 @@ def lm_backbone(params, cfg: ModelConfig, x, *, remat: bool = True,
     ``enc_out`` (B, S_enc, d) in an encoder-decoder.  Returns (the
     final-normed hidden states (B, S, d), aux) with aux the MoE terms
     {"load_balance", "router_z"} summed over layers and divided by
-    ``cfg.num_layers`` (zeros without an MoE).  With ``remat`` and
-    autograd on, each period runs under ``torch.utils.checkpoint``: the
-    backward keeps each period's input and recomputes the rest."""
+    ``cfg.num_layers`` (zeros without an MoE).  The leading dense layers
+    (``params["lead"]``) run first, then the stacked periods.  With
+    ``remat`` and autograd on, each leading layer and each period runs
+    under ``torch.utils.checkpoint``: the backward keeps its input and
+    recomputes the rest."""
     angles = _angles(cfg, x.shape[1], x.device)
     specs = B.period_spec(cfg)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -215,6 +220,14 @@ def lm_backbone(params, cfg: ModelConfig, x, *, remat: bool = True,
             rz = rz + aux["router_z"]
         return x, lb, rz
 
+    def lead_fn(x, lp):        # a dense layer: no MoE terms
+        return B.layer_forward(lp, x, cfg, B.DENSE, angles=angles,
+                               q_block=q_block, kv_block=kv_block)[0]
+
+    for i in range(cfg.first_dense):
+        lp = params["lead"][f"layer_{i}"]
+        x = checkpoint(lead_fn, x, lp, use_reentrant=False) \
+            if remat and torch.is_grad_enabled() else lead_fn(x, lp)
     lb = rz = zero
     for pp, cp in _period_pairs(params, cfg):
         if remat and torch.is_grad_enabled():
@@ -317,6 +330,18 @@ def lm_loss(params, cfg: ModelConfig, batch, *, remat: bool = True,
 
 # ---------------------------------------------------------------- decode ---
 
+def _check_servable(cfg: ModelConfig) -> None:
+    """Serving keeps a K/V cache per stacked layer: latent attention (whose
+    cache would hold the latent) and leading dense layers have none."""
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: latent attention (MLA) trains but does not serve "
+            "here: prefill and decode need a latent cache, not ported")
+    if cfg.first_dense:
+        raise NotImplementedError(
+            f"{cfg.name}: the leading dense layers have no decode cache")
+
+
 def _cache_rows(cfg: ModelConfig, cache_len: int) -> int:
     """Rows of the attention cache: a rolling buffer of min(window,
     cache_len) for sliding-window configs, else cache_len."""
@@ -329,6 +354,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     """An empty cache (zeros, pos 0): K/V rows for attention layers, a
     zero state for Mamba layers (h float32, conv in ``dtype``), and the
     encoder's K/V rows ``xk``, ``xv`` of an encoder-decoder."""
+    _check_servable(cfg)
     dev = require_device(device)
     n = B.num_periods(cfg)
     shape = (n, batch, _cache_rows(cfg, cache_len), cfg.num_kv_heads,
@@ -363,6 +389,7 @@ def lm_decode_step(params, cfg: ModelConfig, tokens, cache, *,
     the cache passed in is consumed.  With ``ctx.seq_shard_decode`` on a
     mesh, ``cache`` is this rank's :func:`shard_cache` and every rank of
     ``ctx.mesh`` takes the step together."""
+    _check_servable(cfg)
     pos = cache["pos"]
     x = embed_tokens(params, cfg, tokens[:, None], pos_offset=pos)[:, 0]
     for i, name, spec, lp, cp in _walk(params, cfg):
@@ -423,6 +450,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, *,
     keeps its final state (S must be a multiple of the chunk size).  An
     encoder-decoder runs the encoder on ``enc_embed`` (B, S_enc, d) and
     keeps each layer's cross-attention K/V as ``xk``, ``xv``."""
+    _check_servable(cfg)
     S = tokens.shape[1]
     x = embed_tokens(params, cfg, tokens)
     enc_out = None

@@ -13,8 +13,9 @@ Variants covered (per the assigned architectures):
   * dense residual branch in parallel (arctic) and the always-on shared
     expert (llama4, nemotron-h): both are the layer's ``mlp``
     (``blocks.py``)
-  * drop-free sigmoid top-6 over 128 relu² experts with routed scaling
-    (nemotron-h), the chip's share of an expert-parallel layer
+  * drop-free sigmoid top-6 over 128 relu² experts (nemotron-h) or 64
+    SwiGLU experts (moonlight) with routed scaling, the chip's share of an
+    expert-parallel layer
 """
 from __future__ import annotations
 
@@ -34,7 +35,9 @@ def init_moe_params(gen: torch.Generator, d_model: int, m: MoEConfig,
     """Random parameters drawn from ``gen`` on its device: the router in
     float32 whatever ``dtype`` is, as in the JAX package; each expert's
     matrices drawn one expert at a time into their stacked tensors, so
-    no float32 copy of a whole stack is made."""
+    no float32 copy of a whole stack is made.  A drop-free SwiGLU layer
+    holds each expert's gate and up matrices side by side, ``w_gate_up``
+    (E, d, 2f), gate first."""
     dev = gen.device
     E, f = m.held, m.expert_ff
     scale_in = float(1.0 / np.sqrt(d_model))
@@ -48,6 +51,11 @@ def init_moe_params(gen: torch.Generator, d_model: int, m: MoEConfig,
 
     p = {"router": torch.randn((d_model, m.num_experts), generator=gen,
                                device=dev) * scale_in}
+    if m.dropless and m.expert_act == "swiglu":
+        # gate and up side by side: one grouped product of width 2f
+        p["w_gate_up"] = stacked((d_model, 2 * f), scale_in)
+        p["w_out"] = stacked((f, d_model), scale_out)
+        return p
     if m.expert_act != "relu2":
         p["w_gate"] = stacked((d_model, f), scale_in)
     p["w_in"] = stacked((d_model, f), scale_in)
@@ -191,7 +199,9 @@ def dropless_forward(params: dict, x: torch.Tensor, m: MoEConfig):
     """x (B, S, d) -> y (B, S, d): this chip's held experts' part of the
     drop-free routed layer (the shared expert is the layer's ``mlp``).
     Every pair routed to a held expert is computed: sorted by expert, the
-    up and down products run as grouped products over the segments
+    up products (relu² experts: w_in; SwiGLU: gate and up as one product
+    of width 2f, then silu(g) * u) and the down products run as grouped
+    products over the segments
     (``kernels.grouped_mm``), and the gated results are summed back per
     token in a fixed order.  Nothing is read on the host.  Traced as
     ``moe.route`` and ``moe.experts`` host spans, the latter with the
@@ -214,9 +224,15 @@ def dropless_forward(params: dict, x: torch.Tensor, m: MoEConfig):
             written = torch.zeros((), dtype=torch.int64, device=h.device)
             _CALLS.append((token, held.sum(), written, offsets))
     try:
-        u = gmm.grouped_matmul(h, params["w_in"], offsets, rows, inv,
-                               written)
-        a = torch.square(F.relu(u))
+        if m.expert_act == "swiglu":
+            gu = gmm.grouped_matmul(h, params["w_gate_up"], offsets, rows,
+                                    inv, written)
+            g, u = gu.split(m.expert_ff, dim=-1)
+            a = F.silu(g) * u
+        else:
+            u = gmm.grouped_matmul(h, params["w_in"], offsets, rows, inv,
+                                   written)
+            a = torch.square(F.relu(u))
         o = gmm.grouped_matmul(a, params["w_out"], offsets)
         # y_t = sum_j gate_tj * o[inv_tj]: rows of pairs no held expert
         # took are zero

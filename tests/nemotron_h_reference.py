@@ -152,10 +152,10 @@ def rebuild(names, values):
     return out
 
 
-def cefl_round(p0, batch, cfg, *, gamma, eta, mu):
+def cefl_round(p0, batch, cfg, *, gamma, eta, mu, loss=loss):
     """One CE-FL round over the n DPUs of ``batch`` (leaves (n, 1, mb,
-    S)), every DPU running gamma steps; returns (the new model, the DPU
-    mean of the last step's loss)."""
+    S)), every DPU running gamma steps of ``loss(params, batch, cfg)``;
+    returns (the new model, the DPU mean of the last step's loss)."""
     names, base = zip(*leaves(p0))
     n = batch["tokens"].shape[0]
     r = 1.0 - eta * mu

@@ -80,12 +80,15 @@ def _params(jcfg, dtype=jnp.float32, seed=0):
 def _as_reference(t):
     """The port's config as a dict of the reference's fields, after
     checking that each field only the port has (Nemotron-H's drop-free
-    MoE, B/C groups, explicit SSM heads, NoPE, relu²) is at the default
-    that gives the reference's layers."""
+    MoE, B/C groups, explicit SSM heads, NoPE, relu²; Moonlight's latent
+    attention, leading dense layers and shared-expert width) is at the
+    default that gives the reference's layers."""
     out = dataclasses.asdict(t)
-    only_port = {"rope": True, "mlp_act": "gelu"}
+    only_port = {"rope": True, "mlp_act": "gelu", "mla": None,
+                 "first_dense": 0}
     only_moe = {"expert_act": "swiglu", "dropless": False,
-                "routed_scale": 1.0, "held_experts": None, "expert_offset": 0}
+                "routed_scale": 1.0, "held_experts": None, "expert_offset": 0,
+                "shared_ff": None}
     only_ssm = {"num_heads": None, "n_groups": 1}
     for d, extra in ((out, only_port), (out["moe"], only_moe),
                      (out["ssm"], only_ssm)):

@@ -234,8 +234,14 @@ def test_traced_round_counts_the_held_pairs():
 
 
 def test_drop_free_layer_takes_relu2_experts():
-    with pytest.raises(ValueError, match="relu"):
-        MoEConfig(num_experts=8, top_k=2, expert_ff=16, dropless=True)
+    """relu² experts (and SwiGLU ones, Moonlight's); no others, and the
+    refusal names the two."""
+    for act in ("relu2", "swiglu"):
+        MoEConfig(num_experts=8, top_k=2, expert_ff=16, dropless=True,
+                  expert_act=act)
+    with pytest.raises(ValueError, match="relu2 or swiglu experts, not gelu"):
+        MoEConfig(num_experts=8, top_k=2, expert_ff=16, dropless=True,
+                  expert_act="gelu")
 
 
 def test_a_pair_left_uncomputed_reads_as_dropped(monkeypatch):

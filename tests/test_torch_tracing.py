@@ -302,6 +302,45 @@ def test_lm_step_spans():
     assert all(a.t1 <= b.t0 for a, b in zip(spans[1:], spans[2:]))
 
 
+def test_mla_spans():
+    """Each latent-attention layer call opens an ``attn.mla`` span with its
+    tokens, S, heads and head dims, inside a forward (or, recomputed
+    under remat, a backward); the leading dense layer's MLP sits in a
+    ``mlp.dense`` span."""
+    from repro_torch import configs
+    from repro_torch.core.round_step import make_dpu_meta
+    from repro_torch.data.synthetic import make_token_batches
+    from repro_torch.experiments.lm import build_lm_step
+    from repro_torch.experiments.spec import ModelSpec
+    from repro_torch.kernels.plane import ParamPlane
+    from repro_torch.models.lm import init_lm_params
+
+    cfg = configs.reduced(configs.get_config("moonlight-16b-a3b"))
+    plane = ParamPlane.from_tree(
+        init_lm_params(torch.Generator().manual_seed(0), cfg,
+                       torch.float32))
+    params = plane.with_data(plane.broadcast(2).data.contiguous())
+    step = build_lm_step(cfg, ModelSpec(kind="lm", batch=4, seq=32, n_dpu=2,
+                                        n_micro=1, gamma=2),
+                         eta=1e-2, mu=1e-2)
+    batch = {k: torch.from_numpy(v) for k, v in make_token_batches(
+        cfg.vocab_size, 2, 1, 2, 32, seed=0).items()}
+    tracing.enable()
+    step(params, batch, make_dpu_meta(2, gammas=[2, 2], device="cpu"))
+    every = tracing.spans()
+    mla = [s for s in every if s.name == "attn.mla"]
+    # 2 layers x 2 DPUs, twice a local step (forward, remat recompute)
+    assert len(mla) == 2 * 2 * 2 * 2
+    assert all(s.attrs == {"tokens": 64, "S": 32, "heads": 4, "qk": 32,
+                           "v": 16} for s in mla)
+    dense = [s for s in every if s.name == "mlp.dense"]
+    assert len(dense) == 1 * 2 * 2 * 2
+    for s in mla + dense:
+        assert every[s.parent].name in ("round_step.forward",
+                                        "round_step.backward")
+        assert _inside(s, every[s.parent])
+
+
 def test_full_store_drops_oldest(monkeypatch):
     monkeypatch.setattr(tracing, "_store", collections.deque(maxlen=3))
     tracing.enable()
